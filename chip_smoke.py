@@ -13,8 +13,11 @@ Phases, each of which raises on a mismatch or a non-finite value:
    and power limit.
 2. Kernels K1 (value) and K2 (value+grad) of the fused Poisson
    log-likelihood against their plain PyTorch version at the flagship shape
-   (T=60,000, N·B=135, N=27), with a clipped case, bit-for-bit repeatability
-   and the median time of 50 calls each.
+   (T=60,000, N·B=135, N=27), with a clipped case, bit-for-bit repeatability,
+   one launch per call, and the median device time of 50 calls each, warm
+   and with the 50 MB L2 flushed, beside the plain version's, the bound
+   (bytes read and written once over 3.35 TB/s, or float32 operations over
+   67 TFLOP/s, whichever is longer) and the roofline share of the cold time.
 3. The flagship slice through the public API: make_model →
    Population.sample → simulate (T=60,000) → prepare_data →
    smart_initialize → map_fit → 20 adaptive HMC transitions of 10 leapfrog
@@ -69,19 +72,53 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip()
 
 
-def median_ms(fn, n: int = 50, warmup: int = 3) -> float:
-    """Median over n calls, each timed between two CUDA events."""
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peaks (on-chip-measurement guide)
+FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+
+
+def median_ms(fn, n: int = 50, warmup: int = 3, flush=None, device_only: bool = True) -> float:
+    """Median over n calls, each timed between two CUDA events.
+
+    device_only: a device-side sleep is queued before the first event, so the
+    host has queued the whole call before the device reaches it and the
+    events bracket device time alone (without it, as in the first port's
+    numbers, a call whose host work outlasts its kernels is timed by the
+    host). flush: a buffer larger than the 50 MB L2, written before the
+    first event.
+    """
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(2_000_000)
+        if flush is not None:
+            flush.zero_()
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(k: str, ops) -> tuple:
+    """(ms, resource): the least time the card could take for kernel k on
+    these operands: each input read once, each output written once, against
+    the float32 multiply-adds of the product(s)."""
+    x, u, ir, s = ops
+    T, NB = x.shape
+    N = u.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in ops)
+    flops = 2 * T * NB * N
+    if k == "vg":
+        nbytes += 4 * (T * N + NB * N + 1)  # dI_rest, dU, ll
+        flops *= 2  # X_fᵀ @ dI_rest
+    else:
+        nbytes += 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 def require(cond: bool, what: str) -> None:
@@ -156,21 +193,42 @@ def check_kernels(dev) -> dict:
             max_err["vg"] = max(abs(float(ll) - ref), float((du - du_r).abs().max()), err_dir)
 
     ops = _kernel_operands(dev)
+    launches = dict(kernels.LAUNCHES)
     a, b = kernels.fused_ll_value_and_grad(*ops, DT), kernels.fused_ll_value_and_grad(*ops, DT)
     require(all(torch.equal(x, y) for x, y in zip(a, b)), "K2 not bit-for-bit repeatable")
     require(torch.equal(kernels.fused_ll_value(*ops, DT), kernels.fused_ll_value(*ops, DT)),
             "K1 not bit-for-bit repeatable")
-    log("kernels repeat bit for bit")
+    require(kernels.LAUNCHES == {"fwd": launches["fwd"] + 2, "vg": launches["vg"] + 2},
+            f"not one launch per call: {launches} -> {kernels.LAUNCHES}")
+    log("kernels repeat bit for bit, one launch per call")
 
-    timing = {
-        "fwd": (median_ms(lambda: kernels.fused_ll_value(*ops, DT)),
-                median_ms(lambda: kernels.fused_poisson_ll_value_reference(*ops, DT))),
-        "vg": (median_ms(lambda: kernels.fused_ll_value_and_grad(*ops, DT)),
-               median_ms(lambda: kernels.fused_poisson_ll_reference(*ops, DT))),
+    fns = {
+        "fwd": (lambda: kernels.fused_ll_value(*ops, DT),
+                lambda: kernels.fused_poisson_ll_value_reference(*ops, DT)),
+        "vg": (lambda: kernels.fused_ll_value_and_grad(*ops, DT),
+               lambda: kernels.fused_poisson_ll_reference(*ops, DT)),
     }
-    for k, (ms, plain) in timing.items():
-        log(f"median of 50 calls, {k}: kernel {ms:.4f} ms, plain torch {plain:.4f} ms")
-    return {k: {"max_abs_err": max_err[k], "ms": timing[k][0], "plain_ms": timing[k][1]} for k in timing}
+    flush = torch.empty(40 * 2**20, dtype=torch.float32, device=dev)  # 160 MB
+    one = torch.zeros(1, device=dev)
+    log(f"timing floor: a one-element torch add timed the same way takes {median_ms(lambda: one.add_(1.0)):.4f} ms")
+    stats = {}
+    for k, (kern, plain) in fns.items():
+        warm, cold = median_ms(kern), median_ms(kern, flush=flush)
+        plain_warm, plain_cold = median_ms(plain), median_ms(plain, flush=flush)
+        enqueue = median_ms(kern, device_only=False)
+        bound_ms, bound_by = bound(k, ops)
+        share = bound_ms / cold
+        log(f"median of 50 calls, {k}: kernel {warm:.4f} ms warm, {cold:.4f} ms cold; "
+            f"plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms cold; "
+            f"bound {bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; "
+            f"host-inclusive events (the first port's method) {enqueue:.4f} ms")
+        if warm < bound_ms:
+            log(f"  {k}: the warm time beats the HBM bound because X_f (32 MB) stays in the 50 MB L2; "
+                f"no share is taken from it")
+        stats[k] = {"max_abs_err": max_err[k], "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
+                    "plain_cold_ms": plain_cold, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share": share, "library_ms": None}
+    return stats
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -320,6 +378,7 @@ def main() -> None:
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",
                 "vg": "theano_pyglm_tpu/ops/pallas_kernels.py:100"}
     names = {"fwd": "K1 fused_ll_fwd", "vg": "K2 fused_ll_vg"}
+    # library_ms is null: no single PyTorch call computes the fused value or value+grad
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": launches[k], **kstats[k]}

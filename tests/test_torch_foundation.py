@@ -210,7 +210,7 @@ def test_default_float_setting():
     assert dtypes.default_float() == torch.float32
     try:
         dtypes.set_default_float(F64)
-        pop = Population(make_model("standard_glm", 2))
+        pop = Population(make_model("standard_glm", 2), device="cpu")
         assert pop.dtype == F64
         assert all(v.dtype == F64 for v in pop.sample(torch.Generator().manual_seed(0)).values())
         assert conv_t.convolve_with_basis(torch.ones(5, dtype=torch.int64), np.ones((2, 1))).dtype == F64

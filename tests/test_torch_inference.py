@@ -70,7 +70,7 @@ def test_leapfrog_matches_jax():
         {k: jnp.asarray(v) for k, v in scale.items()}, n,
     )
     qt, pt_, lpt = hmc_t._leapfrog(
-        logp_t, q_t, params_from_numpy(p, dtype=F64), eps, params_from_numpy(scale, dtype=F64), n
+        logp_t, q_t, params_from_numpy(p, device="cpu", dtype=F64), eps, params_from_numpy(scale, device="cpu", dtype=F64), n
     )
     assert abs(float(lpt) - float(lpj)) <= 1e-6 * abs(float(lpj))
     for k in q_j:
@@ -96,7 +96,7 @@ def test_hmc_accept_prob_matches_jax():
         u = float(jax.random.uniform(k_acc))
         scale = {k: torch.ones_like(v) for k, v in q_t.items()}
         qt, lpt, acc_t = hmc_t._hmc_transition(
-            logp_t, q_t, lp_t, eps, 5, scale, params_from_numpy(p0, dtype=F64), torch.tensor(u, dtype=F64)
+            logp_t, q_t, lp_t, eps, 5, scale, params_from_numpy(p0, device="cpu", dtype=F64), torch.tensor(u, dtype=F64)
         )
         assert abs(float(acc_t) - float(acc_j)) <= 1e-6 * max(float(acc_j), 1e-3), eps
         assert abs(float(lpt) - float(lpj)) <= 1e-6 * abs(float(lpj))
@@ -111,8 +111,8 @@ def test_mass_matrix_bookkeeping_matches_jax():
     m2 = {k: r.uniform(0.1, 2.0, v.shape) for k, v in pos.items()}
     st_j = hmc_j.hmc_init({k: jnp.asarray(v) for k, v in pos.items()}, lambda q: -jnp.sum(q["a"] ** 2), 0.05)
     st_j = st_j._replace(pos_m2={k: jnp.asarray(v) for k, v in m2.items()}, n_var=jnp.asarray(12.0))
-    st_t = hmc_t.hmc_init(params_from_numpy(pos, dtype=F64), lambda q: -torch.sum(q["a"] ** 2), 0.05)
-    st_t = st_t._replace(pos_m2=params_from_numpy(m2, dtype=F64), n_var=torch.tensor(12.0, dtype=F64))
+    st_t = hmc_t.hmc_init(params_from_numpy(pos, device="cpu", dtype=F64), lambda q: -torch.sum(q["a"] ** 2), 0.05)
+    st_t = st_t._replace(pos_m2=params_from_numpy(m2, device="cpu", dtype=F64), n_var=torch.tensor(12.0, dtype=F64))
     a_j, a_t = hmc_j.apply_mass_matrix(st_j), hmc_t.apply_mass_matrix(st_t)
     for k in pos:
         np.testing.assert_allclose(to_np(a_t.scale[k]), np.asarray(a_j.scale[k]), rtol=1e-12)
@@ -187,9 +187,9 @@ def test_map_fit_matches_jax():
     init_j = smart_init_j(pop_j, d_j, jax.random.PRNGKey(1))
     fit_j, lp_j, _ = map_fit_j(pop_j, d_j, init_j, max_iter=300)
 
-    pop_t = pt.Population(spec, dtype=F64)
+    pop_t = pt.Population(spec, device="cpu", dtype=F64)
     d_t = pop_t.prepare_data(np.array(S), stim=stim)
-    init_t = params_from_numpy({k: np.asarray(v) for k, v in init_j.items()}, dtype=F64)
+    init_t = params_from_numpy({k: np.asarray(v) for k, v in init_j.items()}, device="cpu", dtype=F64)
     lp_init = float(pop_t.log_joint(init_t, d_t))
     fit_t, lp_t, iters = map_fit(pop_t, d_t, init_t, max_iter=300)
     lp_t = float(lp_t)
@@ -205,7 +205,7 @@ def test_flagship_slice_small_float32():
     launches no kernel."""
     before = dict(kernels.LAUNCHES)
     spec = pt.make_model("distance_weighted_model", 4, bias={"mu": 3.0, "sigma": 0.4})
-    pop = pt.Population(spec)
+    pop = pt.Population(spec, device="cpu")
     assert pop.dtype == torch.float32 and pop.use_fused
     g = torch.Generator().manual_seed(0)
     true = pop.sample(g)

@@ -116,9 +116,9 @@ def test_population_fused_matches_jax_pallas(f32_jax):
     jax = f32_jax
     spec = tpu.make_model("sparse_weighted_model", 3, bkgd={"type": "none"})
     pop_j = tpu.Population(spec, use_pallas=True)
-    pop_t = pt.Population(spec, use_fused=True)
+    pop_t = pt.Population(spec, device="cpu", use_fused=True)
     params_j = pop_j.sample(jax.random.PRNGKey(0))
-    params_t = params_from_numpy({k: np.asarray(v) for k, v in params_j.items()})
+    params_t = params_from_numpy({k: np.asarray(v) for k, v in params_j.items()}, device="cpu")
     S = np.random.RandomState(0).poisson(0.05, (600, 3)).astype("f")
     d_j, d_t = pop_j.prepare_data(S), pop_t.prepare_data(S)
     assert pop_t._fused_active(d_t)
@@ -180,6 +180,85 @@ def test_wrappers_reject_bad_operands(bad):
             fn(x, u, ir, s, DT)
 
 
+# --- CPU: the launch geometry of the CUDA kernels --------------------------
+
+H100_SMS = 132
+
+
+def _pr1_accepts(NB, N):
+    """The shapes the first CUDA version took: U, a block-private dU and one
+    64-bin tile of X and dI in 227 KB of shared memory."""
+    return 4 * (2 * NB * N + 64 * (NB + N)) <= 227 * 1024
+
+
+def _block_tiles(plan, T):
+    """The kernels' loop: block b takes tiles b, b + grid_x, ... of
+    [i·tile_t, min(T, (i+1)·tile_t))."""
+    return [
+        [(i * plan.tile_t, min(T, (i + 1) * plan.tile_t)) for i in range(b, plan.n_tiles, plan.grid_x)]
+        for b in range(plan.grid_x)
+    ]
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("T", [1, 63, 700, 60_000, kernels.TILE_MAX * H100_SMS * 2 + 1])
+def test_launch_plan_tiles_cover_time_once(T, grad):
+    """Every bin in exactly one tile; tiles are multiples of 4 bins (16-byte
+    aligned spans); every block gets a tile and no block more than one tile
+    above another."""
+    plan = kernels.launch_plan(T, 135, 27, H100_SMS, grad)
+    assert plan.tile_t % 4 == 0 and 4 <= plan.tile_t <= kernels.TILE_MAX
+    per_block = _block_tiles(plan, T)
+    spans = sorted(span for tiles in per_block for span in tiles)
+    assert spans[0][0] == 0 and spans[-1][1] == T
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(t0 < t1 for t0, t1 in spans)
+    counts = [len(tiles) for tiles in per_block]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    assert plan.grid_x <= H100_SMS and plan.grid_y == 1
+    assert plan.smem_bytes <= kernels.SMEM_LIMIT
+
+
+def test_launch_plan_flagship():
+    """T=60,000, NB=135, N=27 on 132 SMs: one block per SM, 518 tiles of 116
+    bins (the longest block 2 % above the mean), within 227 KB."""
+    for grad in (False, True):
+        plan = kernels.launch_plan(60_000, 135, 27, H100_SMS, grad)
+        assert (plan.tile_t, plan.n_tiles, plan.grid_x, plan.grid_y) == (116, 518, 132, 1)
+        assert plan.smem_bytes <= 227 * 1024
+        longest = max(len(t) for t in _block_tiles(plan, 60_000)) * plan.tile_t
+        assert longest <= 1.03 * 60_000 / H100_SMS
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 5, 27, 54, 100, 400, 800])
+def test_launch_plan_takes_every_shape_the_first_version_took(N):
+    """Up to the largest NB the first version accepted, K1 and K2 still
+    fit; K2 splits its dU micro-tiles over grid_y past 256 of them."""
+    nb_max = max(nb for nb in range(1, 2000) if _pr1_accepts(nb, N))
+    for NB in (1, nb_max // 2 or 1, nb_max):
+        for grad in (False, True):
+            plan = kernels.launch_plan(1000, NB, N, H100_SMS, grad)
+            assert plan.smem_bytes <= kernels.SMEM_LIMIT
+            assert plan.grid_y == (-(-kernels.du_tiles(NB, N) // kernels.THREADS) if grad else 1)
+
+
+def _largest_nb(N):
+    nb = 1
+    while kernels._smem_bytes(nb + 1, N, 4) <= kernels.SMEM_LIMIT:
+        nb += 1
+    return nb
+
+
+def test_launch_plan_raises_beyond_the_limit():
+    for N in (1, 27):
+        nb = _largest_nb(N)
+        kernels.launch_plan(100, nb, N, H100_SMS, True)
+        with pytest.raises(ValueError, match="shared memory"):
+            kernels.launch_plan(100, nb + 1, N, H100_SMS, True)
+    with pytest.raises(ValueError):
+        kernels.launch_plan(0, 135, 27, H100_SMS, True)
+
+
 def test_build_flags_target_hopper_and_carry_the_clip():
     flags = nvcc_flags()
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -203,9 +282,23 @@ def _check_against_reference(x, u, ir, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,NB,N,clip_bins", [(700, 15, 3, 0), (700, 15, 3, 40), (60_000, 135, 27, 200)])
+@pytest.mark.parametrize(
+    "T,NB,N,clip_bins",
+    [
+        (700, 15, 3, 0),
+        (700, 15, 3, 40),
+        (60_000, 135, 27, 200),
+        (3, 135, 27, 0),  # less than one tile
+        (1001, 5, 1, 0),  # N=1: one 8-neuron n-tile, mostly padding
+        (2000, 25, 5, 20),  # N=5, not a multiple of the 7-neuron dU micro-tile
+        (1500, 77, 9, 0),  # odd NB
+        (300, "largest", 27, 0),  # the largest NB·N the wrapper takes: dU split over grid_y
+    ],
+)
 def test_kernels_match_reference_on_card(cuda, T, NB, N, clip_bins):
     torch.backends.cuda.matmul.allow_tf32 = False
+    if NB == "largest":
+        NB = _largest_nb(N)
     arrays = _inputs(T, NB, N, i_shift=-3.0 if T > 1000 else 1.0, clip_bins=clip_bins)
     before = dict(kernels.LAUNCHES)
     _check_against_reference(*_torch(*arrays, device=cuda))
@@ -214,11 +307,19 @@ def test_kernels_match_reference_on_card(cuda, T, NB, N, clip_bins):
 
 @pytest.mark.cuda
 def test_kernels_are_deterministic_on_card(cuda):
+    """One launch per call, and the same bits every call: the ticketed
+    fixed-order sums, also after a call on another shape has used the
+    tickets."""
     ops = _torch(*_inputs(60_000, 135, 27, i_shift=-3.0), device=cuda)
-    a, b = fused_ll_value_and_grad(*ops, DT), fused_ll_value_and_grad(*ops, DT)
+    small = _torch(*_inputs(700, 15, 3), device=cuda)
+    before = dict(kernels.LAUNCHES)
+    a = fused_ll_value_and_grad(*ops, DT)
+    fused_ll_value_and_grad(*small, DT)
+    b = fused_ll_value_and_grad(*ops, DT)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(fused_ll_value(*ops, DT), fused_ll_value(*ops, DT))
+    assert kernels.LAUNCHES == {"fwd": before["fwd"] + 2, "vg": before["vg"] + 3}
 
 
 @pytest.mark.cuda
@@ -228,7 +329,7 @@ def test_population_on_card_matches_cpu(cuda):
     spec = pt.make_model("distance_weighted_model", 5)
     S = np.random.RandomState(0).poisson(0.05, (3000, 5)).astype(np.float32)
     stim = np.random.RandomState(1).randn(3000, 1).astype(np.float32)
-    base = pt.Population(spec, dtype=torch.float64).sample(torch.Generator().manual_seed(0))
+    base = pt.Population(spec, device="cpu", dtype=torch.float64).sample(torch.Generator().manual_seed(0))
     results = []
     for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
         pop = pt.Population(spec, device=device, dtype=dtype)

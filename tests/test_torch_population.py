@@ -84,7 +84,7 @@ def test_sample_matches_jax_structure():
     """Prior draws differ by stream but have the same leaves, shapes and kinds."""
     for name, N in MODELS:
         spec = pt.make_model(name, N)
-        p_t = pt.Population(spec, dtype=F64).sample(torch.Generator().manual_seed(0))
+        p_t = pt.Population(spec, device="cpu", dtype=F64).sample(torch.Generator().manual_seed(0))
         from theano_pyglm_tpu import Population as PopJ
 
         p_j = PopJ(spec).sample(jax.random.PRNGKey(0))
@@ -100,28 +100,64 @@ def test_fused_branch_runs_in_float32_only():
     spec = pt.make_model("sparse_weighted_model", 3)
     S = np.random.RandomState(0).poisson(0.05, (500, 3)).astype(float)
     stim = np.random.RandomState(1).randn(500, 1)
-    pop32 = pt.Population(spec)
+    pop32 = pt.Population(spec, device="cpu")
     assert pop32.dtype == torch.float32 and pop32.use_fused
     p = pop32.sample(torch.Generator().manual_seed(1))
     d32 = pop32.prepare_data(S, stim=stim)
     assert pop32._fused_active(d32)
-    pop64 = pt.Population(spec, dtype=F64)
+    pop64 = pt.Population(spec, device="cpu", dtype=F64)
     assert not pop64._fused_active(pop64.prepare_data(S, stim=stim))
-    plain = pt.Population(spec, use_fused=False)
+    plain = pt.Population(spec, device="cpu", use_fused=False)
     assert not plain._fused_active(d32)
     a, b = float(pop32.log_likelihood(p, d32)), float(plain.log_likelihood(p, d32))
     assert abs(a - b) <= 1e-5 * abs(b)
 
 
+def _cuda_bytes() -> int:
+    return torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+
+
+def test_population_defaults_to_the_card():
+    """Population(spec) lives on the current CUDA device and
+    Population(spec, device="cpu") on the CPU; constructing either allocates
+    no tensor. Without a card the first tensor op raises: no fall-back."""
+    spec = pt.make_model("standard_glm", 2)
+    before = _cuda_bytes()
+    pop, pop_cpu = pt.Population(spec), pt.Population(spec, device="cpu")
+    assert pop.device == torch.device("cuda") and pop_cpu.device == torch.device("cpu")
+    assert _cuda_bytes() == before
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            pop.prepare_data(np.zeros((10, 2)), stim=np.zeros((10, 1)))
+    assert pop_cpu.prepare_data(np.zeros((10, 2)), stim=np.zeros((10, 1)))["S"].device.type == "cpu"
+
+
+def test_params_from_numpy_defaults_to_the_card():
+    """The weight carrier's default is the card too; an empty dict allocates
+    nothing, and without a card a leaf raises instead of landing on the CPU."""
+    from theano_pyglm_torch.utils.convert import params_from_numpy
+
+    before = _cuda_bytes()
+    assert params_from_numpy({}) == {}
+    assert _cuda_bytes() == before
+    leaf = {"w": np.ones(3)}
+    if torch.cuda.is_available():
+        assert params_from_numpy(leaf)["w"].device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            params_from_numpy(leaf)
+    assert params_from_numpy(leaf, device="cpu")["w"].device.type == "cpu"
+
+
 def test_unported_options_raise():
     spec = pt.make_model("sparse_weighted_model", 2, bkgd={"type": "none"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Population(spec, time_chunk=128)
-    pop = pt.Population(spec)
+        pt.Population(spec, device="cpu", time_chunk=128)
+    pop = pt.Population(spec, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pop.prepare_data(np.zeros((10, 2)), materialize_design=False)
     with pytest.raises(ValueError, match="stim"):
-        pt.Population(pt.make_model("standard_glm", 2)).prepare_data(np.zeros((10, 2)))
+        pt.Population(pt.make_model("standard_glm", 2), device="cpu").prepare_data(np.zeros((10, 2)))
     with pytest.raises(ValueError, match="available"):
         pt.make_model("bogus", 2)
 
@@ -135,7 +171,7 @@ def test_simulate_rates_match_design_path():
     relative in float64 (the two paths sum the same terms in another order)."""
     spec = pt.make_model("distance_weighted_model", 4)
     spec["bias"] = {"mu": 3.0, "sigma": 0.4}
-    pop = pt.Population(spec, dtype=F64)
+    pop = pt.Population(spec, device="cpu", dtype=F64)
     g = torch.Generator().manual_seed(5)
     params = pop.sample(g)
     T = 800
@@ -153,7 +189,7 @@ def test_simulate_poisson_moments():
     """No stimulus, zero coupling: homogeneous Poisson at exp(bias); counts
     within 4 Poisson standard deviations of 20 Hz·T·dt."""
     spec = pt.make_model("standard_glm", 2, bkgd={"type": "none"})
-    pop = pt.Population(spec, dtype=F64)
+    pop = pt.Population(spec, device="cpu", dtype=F64)
     params = pop.sample(torch.Generator().manual_seed(0))
     params["w_ir"] = torch.zeros_like(params["w_ir"])
     params["bias"] = torch.full((2,), float(np.log(20.0)), dtype=F64)
@@ -166,7 +202,7 @@ def test_simulate_poisson_moments():
 
 def test_simulate_is_strictly_causal():
     spec = pt.make_model("standard_glm", 1, bkgd={"type": "none"})
-    pop = pt.Population(spec, dtype=F64)
+    pop = pt.Population(spec, device="cpu", dtype=F64)
     params = pop.sample(torch.Generator().manual_seed(0))
     params["bias"] = torch.tensor([np.log(20.0)], dtype=F64)
     params["w_ir"] = 3.0 * torch.ones_like(params["w_ir"])

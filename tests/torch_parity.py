@@ -27,14 +27,14 @@ def build_pair(name, N, T=400, seed=0, dtype=torch.float64, spikes=None, **overr
     """
     spec = tpu.make_model(name, N, **overrides)
     pop_j = tpu.Population(spec)
-    pop_t = pt.Population(spec, dtype=dtype)
+    pop_t = pt.Population(spec, device="cpu", dtype=dtype)
     params_j = pop_j.sample(jax.random.PRNGKey(seed))
     r = np.random.RandomState(seed)
     stim = r.randn(T, spec["bkgd"].get("D_stim", 1))
     S = r.poisson(0.05, size=(T, N)).astype(float) if spikes is None else spikes
     data_j = pop_j.prepare_data(S, stim=stim)
     data_t = pop_t.prepare_data(S, stim=stim)
-    params_t = params_from_numpy({k: np.asarray(v) for k, v in params_j.items()}, dtype=dtype)
+    params_t = params_from_numpy({k: np.asarray(v) for k, v in params_j.items()}, device="cpu", dtype=dtype)
     return pop_j, pop_t, params_j, params_t, data_j, data_t
 
 

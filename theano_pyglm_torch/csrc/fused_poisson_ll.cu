@@ -3,8 +3,8 @@
 // (theano_pyglm_torch/ops/cuda_loader.py, ops/kernels.py).
 //
 // Replaces the Pallas TPU kernels of theano_pyglm_tpu/ops/pallas_kernels.py:
-//   K1  _fwd_kernel (value only)           -> fused_ll_fwd
-//   K2  _vg_kernel  (one-pass value+grad)  -> fused_ll_vg
+//   K1  _fwd_kernel (:73, value only)          -> fused_ll_fwd
+//   K2  _vg_kernel  (:100, one-pass value+grad) -> fused_ll_vg
 //
 //   I_raw = I_rest + X_f @ U        X_f (T, NB), U (NB, N), I_rest and S (T, N)
 //   I     = clip(I_raw, ±EXP_CLIP)
@@ -14,29 +14,70 @@
 // Both cotangents are for a unit output cotangent; the autograd Function
 // scales them.
 //
-// Design. The TPU kernels carry their running sums in SMEM/VMEM scratch from
-// one grid step to the next, which works because a TPU grid runs in order on
-// one core. Hopper blocks run in parallel, in no order. Here a grid of
-// min(n_tiles, 2·SMs) blocks strides over time tiles of tile_t bins. Each
-// block stages U and one X_f tile in shared memory, computes the tile's
-// currents with float32 FMA, reduces the tile's log-likelihood in float32
-// and, for K2, writes dI_rest and adds X_tileᵀ @ dI_tile into a dU that is
-// private to the block (shared memory, each entry owned by one thread).
-// Every block writes its partial ll (and dU) to its own row of a scratch
-// buffer that the wrapper allocates; a second kernel sums the rows in a
-// fixed order. There are no atomics, so repeated runs give identical bits.
-// The ragged last tile is masked; nothing is padded.
+// Bounds on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32 outside the
+// tensor cores) at the flagship shape T=60,000, NB=135, N=27, each byte read
+// or written once: K1 moves 45.4 MB (X_f 32.4, I_rest and S 6.5 each) in
+// 13.5 us and does 0.437 GFLOP in 6.5 us, so HBM bounds it at 13.5 us. K2
+// adds dI_rest (6.5 MB) and dU: 51.9 MB in 15.5 us against 0.875 GFLOP in
+// 13.1 us, HBM-bound with the float32 FMA pipe close behind.
 //
-// What bounds it on an H100. Per K2 call at the flagship shape (T=60,000,
-// NB=135, N=27) X_f is 32.4 MB, I_rest and S are 6.5 MB each and dI_rest is
-// 6.5 MB out: ~52 MB, ~16 us of HBM time at 3.35 TB/s. The work is ~0.44
-// GFMA (0.87 GFLOP), ~13 us at the non-tensor float32 rate. The kernel is
-// bandwidth- and FMA-bound. This first version reads both operands of every
-// FMA from shared memory, which keeps it well short of either bound;
-// register tiling, TMA and wgmma are later work.
+// The first version (one thread per (bin, neuron) current and per dU entry)
+// read both operands of every FMA from shared memory; copied each 64-bin
+// tile global→register→shared between two barriers with nothing in flight
+// during the math; ran 2 blocks of 256 threads per SM with a ~13 % ragged
+// tail; and summed the blocks' partial rows in a second launch, after a
+// cudaSetDevice and a cudaFuncSetAttribute on every call. It ran at 8–12 %
+// of the bounds.
+//
+// This design, one persistent block of 256 threads per SM:
+// - The forward product on the tensor cores in split-precision TF32
+//   ("3xTF32"): each float32 operand a is split into a_big = tf32(a) and
+//   a_small = tf32(a − a_big) and a·b is accumulated in float32 as
+//   a_small·b_big + a_big·b_small + a_big·b_big with mma.sync.m16n8k8, which
+//   keeps float32 accuracy (plain TF32 would not meet the tests' limits). A
+//   warp owns a 16-bin × 32-neuron unit of the tile: per 8-wide k-step one A
+//   fragment of X_f feeds four n-tiles of U, and the products go to two
+//   accumulator sets so that consecutive mma.sync are independent. A
+//   register-tiled float32 FMA forward (4 × 4 per thread, float4 operand
+//   reads) took over twice as long: its two operand floats per four FMAs
+//   kept the shared-memory pipe, not the FMA pipe, busy.
+// - K2's dU = X_fᵀ·dI in float32 FMA, in registers for the whole kernel: a
+//   thread owns a 9 (NB) × 7 (N) micro-tile (135 = 15·9 and 27 ≤ 4·7 waste
+//   little at the flagship shape), and the 4 threads that share one each
+//   take every fourth bin; the four sums are joined once, at the end, in a
+//   fixed order. A 3xTF32 mma version of this product ran over twice as
+//   slow: its B operand changes with every n-tile, so each product paid for
+//   its own split and selects. dU is written once per block; where its
+//   micro-tiles outnumber 256 threads, blockIdx.y splits them, each y
+//   recomputes the currents it needs, and only y = 0 writes dI_rest and the
+//   value. wgmma is not used: at N=27 its 64-row tiles would mostly multiply
+//   padding, and its TF32 form wants both operands K-major, which Xᵀ·dI
+//   does not give without a transpose.
+// - Asynchronous double-buffered copies: a tile's X_f, I_rest and S are
+//   three contiguous spans (tile_t is a multiple of 4, so each starts on 16
+//   bytes), each moved by one TMA bulk copy (cp.async.bulk, completing on the
+//   stage's mbarrier) into the other stage while the current tile computes.
+//   K2 overwrites the tile's I_rest with dI in place and writes it out
+//   coalesced.
+// - The wrapper (ops/kernels.py, launch_plan) picks the tile so that every
+//   block gets the same number of tiles, give or take one (60,000 bins: 518
+//   tiles of 116 over 132 blocks, the longest block 2 % above the mean).
+// - One launch, deterministic. Each block writes its partial row (dU and
+//   ll) to scratch; the grid, launched cooperatively so that all its blocks
+//   are resident, meets at a barrier of two integer words; then every block
+//   sums a slice of the columns over the rows in a fixed order. No float
+//   atomics: repeated runs give identical bits.
+// - The host sets the shared-memory attribute once per (kernel, device,
+//   size) and calls cudaSetDevice only when the device is not current.
+//
+// What limits it (PERF.md §6, tools/kernel_probe.py): per tile, the 3xTF32
+// products at the rate mma.sync gets on Hopper and K2's FMA product take
+// longer than the tile's copies, and the prologue, the first tile's copy and
+// the cross-block sums cost a fixed ~8 us a call.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #ifndef EXP_CLIP
 #error "EXP_CLIP must come from theano_pyglm_torch/ops/clipping.py as -DEXP_CLIP"
@@ -44,13 +85,112 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // ops/kernels.py THREADS
 constexpr int kWarps = kThreads / 32;
-constexpr int kSumRows = 8;  // threads per column in sum_rows
+constexpr int kScratch = kThreads * 8;  // words for joining partial sums (≥ kThreads · kMtN)
+constexpr int kMtM = 9, kMtN = 7;  // K2's dU micro-tile (ops/kernels.py DU_TILE): 135 = 15·9, 28 = 4·7
+constexpr int kMaxDevices = 64;
+
+__host__ __device__ constexpr int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared-memory layout, in 32-bit words, mirrored by ops/kernels.py:
+//   U               (ceil8(NB) × BS, zero-padded)
+//   stage 0, 1      X_f (RT × NB, RT = ceil16(tile_t): the tile's rows as
+//                   they lie in memory), I_rest (NS; K2 turns it into dI), S (NS)
+//   scratch         (kScratch)
+// Reads past a row's NB columns land in the next row (or, past the last, in
+// I_rest) and meet zero rows of U or are discarded. The B-operand stride
+// BS ≡ 8 (mod 16) makes U's fragment reads conflict-free. NS leaves 8 words
+// after a tile's rows·N for the dU reads past its last neuron.
+__host__ __device__ constexpr int b_stride(int N) {
+    return (ceil_to(N, 8) % 16) ? ceil_to(N, 8) : ceil_to(N, 8) + 8;
+}
+__host__ __device__ constexpr int n_span(int N, int tile_t) { return ceil_to(tile_t * N, 4) + 8; }
+__host__ __device__ constexpr int stage_words(int NB, int N, int tile_t) {
+    return ceil_to(tile_t, 16) * NB + 2 * n_span(N, tile_t);
+}
+size_t smem_bytes_for(int NB, int N, int tile_t) {
+    const size_t words = (size_t)ceil_to(NB, 8) * b_stride(N) + 2 * (size_t)stage_words(NB, N, tile_t);
+    return (words + kScratch) * 4;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done)
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// One TMA bulk copy global → shared, completing on bar (16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Bytes of a span of n floats at src that one bulk copy can take: the
+// 16-byte multiple when src is 16-byte aligned, else none.
+__device__ __forceinline__ uint32_t bulk_bytes(const float* src, int n) {
+    return (reinterpret_cast<uintptr_t>(src) & 15) ? 0u : (uint32_t)(n * 4) & ~15u;
+}
+
+// dst[0:n] = src[0:n], shared → global, by the block: 16 bytes a thread where
+// both are 16-byte aligned, else 4.
+__device__ __forceinline__ void copy_out(float* dst, const float* src, int n) {
+    int head = 0;
+    if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+        for (int c = threadIdx.x; c < n >> 2; c += kThreads)
+            reinterpret_cast<float4*>(dst)[c] = reinterpret_cast<const float4*>(src)[c];
+        head = n & ~3;
+    }
+    for (int i = head + threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+}
+
+// Round to TF32 (10 mantissa bits) by adding half an ulp and truncating: two
+// integer operations at full rate.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = big + small, both TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+    big = to_tf32(x);
+    small = to_tf32(x - __uint_as_float(big));
+}
+
+// c += a·b for one m16n8k8 TF32 tile (fragments as in the PTX ISA:
+// g = lane/4, t = lane%4; a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b = B[t][g], B[t+4][g]; c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // Sum of v over the block in a fixed order; the result is valid in thread 0.
 __device__ float block_sum(float v) {
     __shared__ float warp_sums[kWarps];
+    __syncthreads();  // an earlier call's readers of warp_sums are done
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (lane == 0) warp_sums[warp] = v;
@@ -61,136 +201,357 @@ __device__ float block_sum(float v) {
     return v;
 }
 
-// Shared memory: U (NB·N) | X_f tile (tile_t·NB) | K2: dI tile (tile_t·N) | K2: dU (NB·N).
-// part row b: K1 [ll]; K2 [dU (NB·N), ll].
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+    a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+}
+
+// dst[c] = Σ_{r0 <= r < r1} src[r·stride + c] for c < w4, in float4 columns
+// and a fixed order.
+__device__ void sum_rows(float4* dst, const float4* src, size_t stride, int r0, int r1, int w4) {
+    if (w4 == 1) {  // one column (K1): the rows over the threads, then a fixed tree
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int r = r0 + (int)threadIdx.x; r < r1; r += kThreads) add4(acc, __ldcg(src + r * stride));
+        acc = make_float4(block_sum(acc.x), block_sum(acc.y), block_sum(acc.z), block_sum(acc.w));
+        if (threadIdx.x == 0) dst[0] = acc;
+        return;
+    }
+    // up to 4 columns a thread at once, 4 rows deep, so that 16 loads are in flight
+    for (int c0 = threadIdx.x; c0 < w4; c0 += 4 * kThreads) {
+        float4 acc[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int c = c0 + q * kThreads;
+            acc[q] = c < w4 ? __ldcg(src + r0 * stride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll 4
+        for (int r = r0 + 1; r < r1; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int c = c0 + q * kThreads;
+                if (c < w4) add4(acc[q], __ldcg(src + r * stride + c));
+            }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            if (c0 + q * kThreads < w4) dst[c0 + q * kThreads] = acc[q];
+    }
+}
+
+// All blocks of the grid meet here. The grid is launched cooperatively, so
+// they are all resident. bar[0] counts arrivals and is left at 0; bar[1] is
+// the generation, which only grows.
+__device__ void grid_barrier(unsigned* bar) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        volatile unsigned* gen = bar + 1;
+        const unsigned g0 = *gen;  // cannot move before this block arrives
+        __threadfence();
+        if (atomicAdd(bar, 1u) == gridDim.x * gridDim.y - 1) {
+            atomicExch(bar, 0u);
+            __threadfence();
+            atomicAdd(bar + 1, 1u);
+        } else {
+            while (*gen == g0) __nanosleep(64);
+        }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+// part row b (one per blockIdx.x): K1 [ll, pad]; K2 [dU (NB·N row-major), ll, pad].
+// bar: 2 words, zeroed before the first call.
 template <bool kGrad>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
                const float* __restrict__ i_rest, const float* __restrict__ s,
-               float* __restrict__ d_irest, float* __restrict__ part,
-               int T, int NB, int N, int tile_t, float dt, float log_dt) {
-    extern __shared__ float smem[];
-    const int nbn = NB * N;
+               float* __restrict__ d_irest, float* __restrict__ part, float* __restrict__ out,
+               unsigned* __restrict__ bar, int T, int NB, int N, int tile_t, float dt,
+               float log_dt) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ __align__(8) uint64_t s_bar[2];  // a stage's bulk copies have landed
+    const int KP = ceil_to(NB, 8), RT = ceil_to(tile_t, 16);
+    const int BS = b_stride(N), NS = n_span(N, tile_t);
+    const int SW = stage_words(NB, N, tile_t);
+    const int NT = (N + 7) >> 3;   // n-tiles of 8 neurons
+    const int NG = (NT + 3) >> 2;  // forward n-groups of 4 n-tiles
     float* s_u = smem;
-    float* s_x = s_u + nbn;
-    float* s_d = s_x + tile_t * NB;
-    float* s_du = s_d + tile_t * N;
-    const int tid = threadIdx.x;
-
-    for (int i = tid; i < nbn; i += kThreads) {
-        s_u[i] = u[i];
-        if (kGrad) s_du[i] = 0.f;
-    }
-    float ll = 0.f;
+    float* s_stage = s_u + (size_t)KP * BS;
+    float* s_join = s_stage + 2 * (size_t)SW;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
     const int n_tiles = (T + tile_t - 1) / tile_t;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int t0 = tile * tile_t;
-        const int rows = min(tile_t, T - t0);  // masks the ragged last tile
-        __syncthreads();  // U is staged; the previous tile's readers of s_x, s_d are done
-        const float* x_tile = x_f + (size_t)t0 * NB;
-        for (int i = tid; i < rows * NB; i += kThreads) s_x[i] = x_tile[i];
-        __syncthreads();
+    const bool lead_y = blockIdx.y == 0;
 
-        const size_t base = (size_t)t0 * N;
-        for (int e = tid; e < rows * N; e += kThreads) {
-            const int r = e / N, n = e - r * N;
-            const float* x_row = s_x + r * NB;
-            float acc = 0.f;
-            for (int m = 0; m < NB; ++m) acc = fmaf(x_row[m], s_u[m * N + n], acc);
-            const float i_raw = i_rest[base + e] + acc;
-            const float I = fminf(fmaxf(i_raw, -EXP_CLIP), EXP_CLIP);
-            const float rate_dt = expf(I) * dt;
-            const float spikes = s[base + e];
-            ll += spikes * (I + log_dt) - rate_dt;
-            if (kGrad) {
-                // the clip's gradient is 0 outside the active range
-                const float d = fabsf(i_raw) < EXP_CLIP ? spikes - rate_dt : 0.f;
-                d_irest[base + e] = d;
-                s_d[e] = d;
-            }
-        }
-        if (kGrad) {
-            __syncthreads();
-            // thread tid owns the dU entries e ≡ tid (mod kThreads)
-            for (int e = tid; e < nbn; e += kThreads) {
-                const int m = e / N, n = e - m * N;
-                float acc = s_du[e];
-                for (int r = 0; r < rows; ++r) acc = fmaf(s_x[r * NB + m], s_d[r * N + n], acc);
-                s_du[e] = acc;
-            }
-        }
+    // Zero U and both stages (pads stay zero; words never copied stay
+    // finite), before any copy lands in them.
+    {
+        float4* z = reinterpret_cast<float4*>(smem);
+        const int n4 = (KP * BS + 2 * SW) >> 2;
+        for (int i = tid; i < n4; i += kThreads) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    const int width = kGrad ? nbn + 1 : 1;
-    float* row = part + (size_t)blockIdx.x * width;
-    if (kGrad)
-        for (int e = tid; e < nbn; e += kThreads) row[e] = s_du[e];
-    ll = block_sum(ll);
-    if (tid == 0) row[width - 1] = ll;
-}
-
-// out[e] = Σ_b part[b·width + e] over n_parts rows, in a fixed order:
-// kSumRows threads per column each sum a strided subset of the rows, then
-// the first adds the kSumRows partial sums in order.
-__global__ void sum_rows(const float* __restrict__ part, int n_parts, int width,
-                         float* __restrict__ out) {
-    __shared__ float partial[kSumRows][33];
-    const int e = blockIdx.x * 32 + threadIdx.x;
-    float acc = 0.f;
-    if (e < width)
-        for (int b = threadIdx.y; b < n_parts; b += kSumRows) acc += part[(size_t)b * width + e];
-    partial[threadIdx.y][threadIdx.x] = acc;
+    if (tid == 0) {
+        mbar_init(&s_bar[0]);
+        mbar_init(&s_bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
     __syncthreads();
-    if (threadIdx.y == 0 && e < width) {
-        float total = 0.f;
-        for (int y = 0; y < kSumRows; ++y) total += partial[y][threadIdx.x];
-        out[e] = total;
-    }
-}
 
-size_t smem_bytes(bool grad, int NB, int N, int tile_t) {
-    size_t floats = (size_t)NB * N + (size_t)tile_t * NB;
-    if (grad) floats += (size_t)tile_t * N + (size_t)NB * N;
-    return floats * sizeof(float);
+    // A tile's X_f, I_rest and S are three contiguous spans: thread 0 moves
+    // each with one TMA bulk copy onto the stage's mbarrier, and the threads
+    // copy what a bulk copy cannot take (a tail under 16 bytes, or a whole
+    // span whose source is not 16-byte aligned) with cp.async, in one group.
+    auto issue = [&](int tile, int st) {
+        const int t0 = tile * tile_t, rows = min(tile_t, T - t0);
+        float* dst[3] = {s_stage + (size_t)st * SW, s_stage + (size_t)st * SW + RT * NB,
+                         s_stage + (size_t)st * SW + RT * NB + NS};
+        const float* src[3] = {x_f + (size_t)t0 * NB, i_rest + (size_t)t0 * N, s + (size_t)t0 * N};
+        const int n[3] = {rows * NB, rows * N, rows * N};
+        uint32_t bytes[3], total = 0;
+        for (int q = 0; q < 3; ++q) total += bytes[q] = bulk_bytes(src[q], n[q]);
+        if (tid == 0) {
+            // this stage's earlier reads and writes, in the generic proxy, are
+            // ordered before the bulk copies' writes
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_expect_tx(&s_bar[st], total);
+            for (int q = 0; q < 3; ++q)
+                if (bytes[q]) bulk_copy(dst[q], src[q], bytes[q], &s_bar[st]);
+        }
+        for (int q = 0; q < 3; ++q)
+            for (int i = (int)(bytes[q] >> 2) + tid; i < n[q]; i += kThreads) cp_async4(dst[q] + i, src[q] + i);
+    };
+    // U into rows of BS words, 4 bytes a thread
+    for (int e = tid; e < NB * N; e += kThreads) {
+        const int m = e / N;
+        cp_async4(s_u + m * BS + (e - m * N), u + e);
+    }
+    cp_async_commit();
+    issue(blockIdx.x, 0);
+    cp_async_commit();
+
+    // K2's dU: kMtM × kMtN micro-tiles in registers for the whole kernel,
+    // float32 FMA. A micro-tile holds rows mg, mg + MG, ... of dU (so that a
+    // warp's X_f reads fall in consecutive banks) and columns n0d, n0d + 1, ...
+    // n_slices = THREADS / (this y-slice's micro-tiles) threads share one
+    // micro-tile, each taking every n_slices-th bin of a tile; their sums are
+    // joined once, at the end, in a fixed order.
+    const int ngd = (N + kMtN - 1) / kMtN, MG = (NB + kMtM - 1) / kMtM;
+    const int y_items = kGrad ? min(kThreads, MG * ngd - (int)blockIdx.y * kThreads) : 0;
+    const int n_slices = y_items > 0 ? kThreads / y_items : 0;
+    const int slice = y_items > 0 ? tid / y_items : 0;
+    const int item_l = tid - slice * y_items;
+    const bool owns_du = slice < n_slices;
+    const int item = blockIdx.y * kThreads + item_l;
+    const int mg = owns_du ? item / ngd : 0, n0d = owns_du ? (item % ngd) * kMtN : 0;
+    float du[kMtM][kMtN];
+#pragma unroll
+    for (int i = 0; i < kMtM; ++i)
+#pragma unroll
+        for (int j = 0; j < kMtN; ++j) du[i][j] = 0.f;
+
+    float ll = 0.f;
+    int k = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
+        const int next = tile + gridDim.x;
+        if (next < n_tiles) issue(next, (k + 1) & 1);
+        cp_async_commit();
+        cp_async_wait_prev();
+        mbar_wait(&s_bar[k & 1], (k >> 1) & 1);
+        __syncthreads();  // this tile's copies (and, the first time, U's) are in place
+
+        const int t0 = tile * tile_t;
+        const int rows = min(tile_t, T - t0);
+        const float* sx = s_stage + (size_t)(k & 1) * SW;
+        float* sir = s_stage + (size_t)(k & 1) * SW + RT * NB;  // I_rest, then (K2) dI in place
+        const float* ssp = sir + NS;
+
+        // forward: unit = (16 bins, 4 n-tiles of 8 neurons)
+        for (int unit = warp; unit < (RT >> 4) * NG; unit += kWarps) {
+            const int fb = unit / NG, ng = unit - fb * NG;
+            const int r0 = fb * 16, nt0 = ng * 4;
+            float acc_lo[4][4], acc_hi[4][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc_lo[j][c] = acc_hi[j][c] = 0.f;
+            const float* xa = sx + (size_t)(r0 + g) * NB + t;
+            const float* ub = s_u + t * BS + nt0 * 8 + g;
+            for (int kk = 0; kk < KP; kk += 8) {
+                uint32_t ab[4], as[4], bb[4][2], bs[4][2];
+                split_tf32(xa[kk], ab[0], as[0]);
+                split_tf32(xa[8 * NB + kk], ab[1], as[1]);
+                split_tf32(xa[kk + 4], ab[2], as[2]);
+                split_tf32(xa[8 * NB + kk + 4], ab[3], as[3]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    split_tf32(ub[kk * BS + 8 * j], bb[j][0], bs[j][0]);
+                    split_tf32(ub[(kk + 4) * BS + 8 * j], bb[j][1], bs[j][1]);
+                }
+                // 3xTF32: the small terms into acc_lo, big·big into acc_hi,
+                // the n-tiles interleaved, so that consecutive products are
+                // independent. n-tiles past NT multiply whatever follows U's
+                // last columns (inside shared memory) and are never read.
+#pragma unroll
+                for (int j = 0; j < 4; ++j) mma_tf32(acc_lo[j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) mma_tf32(acc_hi[j], ab, bb[j][0], bb[j][1]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) mma_tf32(acc_lo[j], ab, bs[j][0], bs[j][1]);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int r = r0 + g + ((c >> 1) << 3), n = (nt0 + j) * 8 + 2 * t + (c & 1);
+                    if (r < rows && n < N) {  // the ragged tile, the padded neurons
+                        const int e = r * N + n;
+                        const float i_raw = sir[e] + (acc_hi[j][c] + acc_lo[j][c]);
+                        const float I = fminf(fmaxf(i_raw, -EXP_CLIP), EXP_CLIP);
+                        const float rate_dt = expf(I) * dt;
+                        const float spikes = ssp[e];
+                        ll += spikes * (I + log_dt) - rate_dt;
+                        if (kGrad)  // the clip's gradient is 0 outside the active range
+                            sir[e] = fabsf(i_raw) < EXP_CLIP ? spikes - rate_dt : 0.f;
+                    }
+                }
+        }
+
+        if (kGrad) {
+            __syncthreads();  // the tile's dI is in shared memory
+            if (lead_y) copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
+            if (owns_du) {
+                // X_f and dI rows lie NB and N apart, so each operand is a
+                // scalar read; rows past NB or columns past N read the next
+                // row and land in discarded sums
+                const float* xm = sx + mg;
+                const float* dp = sir + n0d;
+#pragma unroll 2
+                for (int r = slice; r < rows; r += n_slices) {
+                    float xv[kMtM], dv[kMtN];
+#pragma unroll
+                    for (int i = 0; i < kMtM; ++i) xv[i] = xm[r * NB + i * MG];
+#pragma unroll
+                    for (int j = 0; j < kMtN; ++j) dv[j] = dp[r * N + j];
+#pragma unroll
+                    for (int i = 0; i < kMtM; ++i)
+#pragma unroll
+                        for (int j = 0; j < kMtN; ++j) du[i][j] = fmaf(xv[i], dv[j], du[i][j]);
+                }
+            }
+        }
+        __syncthreads();  // readers of this stage are done before it is refilled
+    }
+
+    // -- this block's partial row, width ceil4(NB·N + 1) (K2) or 4 (K1)
+    const int width = kGrad ? NB * N + 1 : 1;
+    const int w4 = ceil_to(width, 4) >> 2;
+    float* row = part + (size_t)blockIdx.x * w4 * 4;
+    if (kGrad) {
+        // join the slices' sums in slice order, one micro-tile row at a time
+        // (slices 1.. fill s_join, kMtN words a thread)
+#pragma unroll
+        for (int i = 0; i < kMtM; ++i) {
+            __syncthreads();
+            if (slice > 0 && owns_du)
+#pragma unroll
+                for (int j = 0; j < kMtN; ++j) s_join[(tid - y_items) * kMtN + j] = du[i][j];
+            __syncthreads();
+            if (slice == 0)
+                for (int sl = 1; sl < n_slices; ++sl)
+#pragma unroll
+                    for (int j = 0; j < kMtN; ++j)
+                        du[i][j] += s_join[((sl - 1) * y_items + item_l) * kMtN + j];
+        }
+        if (slice == 0 && owns_du)
+#pragma unroll
+            for (int i = 0; i < kMtM; ++i)
+#pragma unroll
+                for (int j = 0; j < kMtN; ++j)
+                    if (mg + i * MG < NB && n0d + j < N) row[(mg + i * MG) * N + n0d + j] = du[i][j];
+    }
+    ll = block_sum(ll);
+    if (lead_y && tid == 0) row[width - 1] = ll;
+
+    // -- after a grid barrier, every block sums a slice of the columns over
+    // the partial rows, in a fixed order
+    grid_barrier(bar);
+    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
+    const int c_lo = (int)((long long)b * w4 / nb);
+    const int C = (int)((long long)(b + 1) * w4 / nb) - c_lo;
+    const float4* p4 = reinterpret_cast<const float4*>(part) + c_lo;
+    float4* out4 = reinterpret_cast<float4*>(out) + c_lo;
+    if (C == 0) return;
+    if (2 * C > kThreads) {  // few blocks, wide rows: a column a thread
+        sum_rows(out4, p4, w4, 0, gridDim.x, C);
+        return;
+    }
+    if (C == 1) {  // the rows over all threads, then a fixed tree
+        sum_rows(out4, p4, w4, 0, gridDim.x, 1);
+        return;
+    }
+    // P row phases a column, then the phases in order
+    const int P = kThreads / C, cl = tid % C, ph = tid / C;
+    float4* red = reinterpret_cast<float4*>(s_join);
+    if (ph < P) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int r = ph; r < (int)gridDim.x; r += P) add4(acc, __ldcg(p4 + (size_t)r * w4 + cl));
+        red[ph * C + cl] = acc;
+    }
+    __syncthreads();
+    if (tid < C) {
+        float4 acc = red[tid];
+        for (int q = 1; q < P; ++q) add4(acc, red[q * C + tid]);
+        out4[tid] = acc;
+    }
 }
 
 template <bool kGrad>
 cudaError_t launch(const float* x_f, const float* u, const float* i_rest, const float* s,
-                   float* d_irest, float* part, float* out, int T, int NB, int N, int tile_t,
-                   int n_blocks, int device, float dt, float log_dt, cudaStream_t stream) {
-    cudaError_t err = cudaSetDevice(device);
+                   float* d_irest, float* part, float* out, unsigned* bar, int T, int NB, int N,
+                   int tile_t, int grid_x, int grid_y, int smem_bytes, int device, float dt,
+                   float log_dt, cudaStream_t stream) {
+    static int attr_bytes[kMaxDevices];  // the shared-memory attribute set so far, per device
+    if (device < 0 || device >= kMaxDevices || tile_t % 4 != 0) return cudaErrorInvalidValue;
+    if ((size_t)smem_bytes != smem_bytes_for(NB, N, tile_t)) return cudaErrorInvalidValue;
+    if (kGrad && grid_y * kThreads < ((NB + kMtM - 1) / kMtM) * ((N + kMtN - 1) / kMtN))
+        return cudaErrorInvalidValue;
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    const size_t smem = smem_bytes(kGrad, NB, N, tile_t);
-    err = cudaFuncSetAttribute(fused_ll_tiles<kGrad>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    fused_ll_tiles<kGrad><<<n_blocks, kThreads, smem, stream>>>(
-        x_f, u, i_rest, s, d_irest, part, T, NB, N, tile_t, dt, log_dt);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int width = kGrad ? NB * N + 1 : 1;
-    sum_rows<<<(width + 31) / 32, dim3(32, kSumRows), 0, stream>>>(part, n_blocks, width, out);
-    return cudaGetLastError();
+    if (attr_bytes[device] < smem_bytes) {
+        err = cudaFuncSetAttribute(fused_ll_tiles<kGrad>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        if (err != cudaSuccess) return err;
+        attr_bytes[device] = smem_bytes;
+    }
+    // cooperative: the runtime refuses a grid whose blocks cannot all be
+    // resident at once, which the grid barrier needs
+    void* args[] = {&x_f, &u, &i_rest, &s, &d_irest, &part, &out, &bar,
+                    &T, &NB, &N, &tile_t, &dt, &log_dt};
+    return cudaLaunchCooperativeKernel((const void*)fused_ll_tiles<kGrad>, dim3(grid_x, grid_y),
+                                       dim3(kThreads), args, (size_t)smem_bytes, stream);
 }
 
 }  // namespace
 
-// K1. out[0] = ll. part: (n_blocks, 1) scratch.
+// K1. out[0] = ll. part: (grid_x, 4) scratch, out: 4 floats; bar: 2 words,
+// zeroed before the first call on the stream.
 extern "C" int fused_ll_fwd(const float* x_f, const float* u, const float* i_rest,
-                            const float* s, float* part, float* out, int T, int NB, int N,
-                            int tile_t, int n_blocks, int device, float dt, float log_dt,
-                            void* stream) {
-    return (int)launch<false>(x_f, u, i_rest, s, nullptr, part, out, T, NB, N, tile_t, n_blocks,
-                              device, dt, log_dt, (cudaStream_t)stream);
+                            const float* s, float* part, float* out, unsigned* bar, int T, int NB,
+                            int N, int tile_t, int grid_x, int grid_y, int smem_bytes, int device,
+                            float dt, float log_dt, void* stream) {
+    return (int)launch<false>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, tile_t,
+                              grid_x, grid_y, smem_bytes, device, dt, log_dt, (cudaStream_t)stream);
 }
 
 // K2. out[0 : NB·N] = dU (row-major (NB, N)), out[NB·N] = ll; d_irest (T, N).
-// part: (n_blocks, NB·N + 1) scratch.
+// part: (grid_x, ceil4(NB·N + 1)) scratch, out: ceil4(NB·N + 1) floats; bar as K1's.
 extern "C" int fused_ll_vg(const float* x_f, const float* u, const float* i_rest,
-                           const float* s, float* d_irest, float* part, float* out, int T,
-                           int NB, int N, int tile_t, int n_blocks, int device, float dt,
-                           float log_dt, void* stream) {
-    return (int)launch<true>(x_f, u, i_rest, s, d_irest, part, out, T, NB, N, tile_t, n_blocks,
-                             device, dt, log_dt, (cudaStream_t)stream);
+                           const float* s, float* d_irest, float* part, float* out, unsigned* bar,
+                           int T, int NB, int N, int tile_t, int grid_x, int grid_y, int smem_bytes,
+                           int device, float dt, float log_dt, void* stream) {
+    return (int)launch<true>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, tile_t,
+                             grid_x, grid_y, smem_bytes, device, dt, log_dt, (cudaStream_t)stream);
 }
 
 extern "C" const char* fused_ll_error_string(int err) {

@@ -63,7 +63,8 @@ class Population:
         """``use_fused``: evaluate the exp-Poisson likelihood in float32
         through the fused op (the hand-written kernels on a CUDA device, their
         plain torch version on the CPU). ``time_chunk`` streaming is not
-        ported yet and raises."""
+        ported yet and raises. ``device`` defaults to the current CUDA
+        device; pass ``device="cpu"`` for the CPU."""
         if time_chunk:
             raise NotImplementedError(f"time_chunk is {_NOT_PORTED}")
         validate_spec(spec)
@@ -71,7 +72,8 @@ class Population:
         self.N = int(spec["N"])
         self.dt = float(spec.get("dt", 1e-3))
         self.use_fused = bool(use_fused)
-        self.device = torch.device(device if device is not None else "cpu")
+        # the card unless the caller asks for the CPU; no check, no fall-back
+        self.device = torch.device(device if device is not None else "cuda")
         self.dtype = dtype if dtype is not None else default_float()
 
         # -- bases (numpy, built once)

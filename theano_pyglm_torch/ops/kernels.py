@@ -22,32 +22,41 @@ of :data:`LAUNCHES`; for CPU tensors it runs the plain torch version beside
 it (:func:`fused_poisson_ll_reference`), which is also the tests' oracle.
 Any other placement, or a CUDA tensor that is not float32 and contiguous,
 raises. :class:`FusedPoissonLL` is the autograd op: K2 when ``u`` or
-``i_rest`` needs a gradient, else K1. The chain-batched form (ROADMAP K3) and
-bf16 designs (K4) are not ported yet.
+``i_rest`` needs a gradient, else K1. A call's tile, grid and shared memory
+come from :func:`launch_plan`, a plain function of the shapes. The
+chain-batched form (ROADMAP K3) and bf16 designs (K4) are not ported yet.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from theano_pyglm_torch.ops.clipping import clip_exponent, exponent_active
 
 __all__ = [
+    "DU_TILE",
     "LAUNCHES",
-    "TILE_T",
+    "SMEM_LIMIT",
+    "THREADS",
+    "TILE_MAX",
     "FusedPoissonLL",
+    "LaunchPlan",
+    "du_tiles",
     "fused_ll_value",
     "fused_ll_value_and_grad",
     "fused_poisson_ll",
     "fused_poisson_ll_reference",
     "fused_poisson_ll_value_reference",
+    "launch_plan",
 ]
 
-TILE_T = 64  # time bins per tile of the CUDA kernels
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block may use
+THREADS = 256  # threads per block of the CUDA kernels (kThreads in the source)
+TILE_MAX = 128  # the widest time tile, in bins
+SMEM_LIMIT = 227 * 1024 - 256  # a Hopper block's 227 KB, less the kernels' static shared memory
 # Launches of each kernel on a CUDA device; the CPU path does not count.
 LAUNCHES = {"fwd": 0, "vg": 0}
 
@@ -78,6 +87,74 @@ def fused_poisson_ll_reference(x_f, u, i_rest, s, dt: float):
 # ---------------------------------------------------------------------------
 
 
+class LaunchPlan(NamedTuple):
+    """How one call of K1 or K2 is cut (see the source note of the kernels)."""
+
+    tile_t: int  # bins per time tile, a multiple of 4
+    n_tiles: int  # ceil(T / tile_t)
+    grid_x: int  # persistent blocks striding over the tiles, at most one per SM
+    grid_y: int  # K2: slices of the dU micro-tiles; K1: 1
+    smem_bytes: int  # dynamic shared memory of one block
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _smem_bytes(NB: int, N: int, tile_t: int) -> int:
+    """Mirror of smem_bytes_for in the source: U, two stages of the X_f,
+    I_rest and S tiles, and a join scratch, in 32-bit words."""
+    bs = _ceil_to(N, 8) + (0 if _ceil_to(N, 8) % 16 else 8)  # b_stride
+    ns = _ceil_to(tile_t * N, 4) + 8  # n_span
+    stage = _ceil_to(tile_t, 16) * NB + 2 * ns
+    return 4 * (_ceil_to(NB, 8) * bs + 2 * stage + 8 * THREADS)
+
+
+# K2's dU micro-tile, rows × columns (kMtM, kMtN in the source): at the
+# flagship shape NB = 135 = 15·9 and N = 27 ≤ 4·7 leave little padding
+DU_TILE = (9, 7)
+
+
+def du_tiles(NB: int, N: int) -> int:
+    """K2's dU in DU_TILE micro-tiles, one per thread of a grid_y slice."""
+    return -(-NB // DU_TILE[0]) * -(-N // DU_TILE[1])
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool) -> LaunchPlan:
+    """Tile, grid and shared memory of one call at (T, NB, N) on a card with
+    ``sm_count`` SMs.
+
+    The tile is the widest multiple of 4 bins up to TILE_MAX whose two
+    stages fit in SMEM_LIMIT, then narrowed so that every block takes the
+    same number of tiles, give or take one. K2 splits its dU micro-tiles
+    over grid_y slices of THREADS. Raises ValueError when not even a 4-bin
+    tile fits.
+    """
+    if min(T, NB, N, sm_count) < 1:
+        raise ValueError(f"empty launch: T={T} NB={NB} N={N} sm_count={sm_count}")
+    if _smem_bytes(NB, N, 4) > SMEM_LIMIT:
+        raise ValueError(
+            f"NB={NB}, N={N} needs {_smem_bytes(NB, N, 4)} B of shared memory (> {SMEM_LIMIT})"
+        )
+    tile_max = 4
+    while tile_max + 4 <= TILE_MAX and _smem_bytes(NB, N, tile_max + 4) <= SMEM_LIMIT:
+        tile_max += 4
+    grid_y = -(-du_tiles(NB, N) // THREADS) if grad else 1
+    gx_cap = max(1, sm_count // grid_y)
+    per_block = -(-T // (gx_cap * tile_max))
+    tile_t = min(tile_max, _ceil_to(-(-T // (gx_cap * per_block)), 4))
+    n_tiles = -(-T // tile_t)
+    grid_x = min(gx_cap, n_tiles)
+    return LaunchPlan(
+        tile_t=tile_t,
+        n_tiles=n_tiles,
+        grid_x=grid_x,
+        grid_y=grid_y,
+        smem_bytes=_smem_bytes(NB, N, tile_t),
+    )
+
+
 def _check(x_f, u, i_rest, s) -> bool:
     """Validate the operands; True when they lie on a CUDA device."""
     if x_f.ndim != 2 or u.ndim != 2 or x_f.shape[1] != u.shape[0]:
@@ -99,18 +176,24 @@ def _check(x_f, u, i_rest, s) -> bool:
             raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-    NB = x_f.shape[1]
-    if T * max(NB, N) >= 2**31:
+    if T * max(x_f.shape[1], N) >= 2**31:
         raise ValueError("T·max(NB, N) must fit in a 32-bit index")
-    smem = 4 * (2 * NB * N + TILE_T * (NB + N))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"NB·N = {NB * N} needs {smem} B of shared memory (> {_SMEM_LIMIT})")
     return True
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_BARRIERS: dict = {}  # (device index, stream) -> the kernels' grid-barrier words
+
+
+def _barrier(dev, stream: int) -> torch.Tensor:
+    bar = _BARRIERS.get((dev.index, stream))
+    if bar is None:
+        bar = _BARRIERS[(dev.index, stream)] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return bar
 
 
 def _launch(with_grad: bool, x_f, u, i_rest, s, dt: float):
@@ -120,24 +203,26 @@ def _launch(with_grad: bool, x_f, u, i_rest, s, dt: float):
     T, NB = x_f.shape
     N = u.shape[1]
     dev = x_f.device
-    n_blocks = min(-(-T // TILE_T), 2 * _sm_count(dev.index))
-    width = NB * N + 1 if with_grad else 1
-    part = torch.empty((n_blocks, width), dtype=torch.float32, device=dev)
+    plan = launch_plan(T, NB, N, _sm_count(dev.index), with_grad)
+    width = _ceil_to(NB * N + 1 if with_grad else 1, 4)  # float4 rows
+    part = torch.empty((plan.grid_x, width), dtype=torch.float32, device=dev)
     out = torch.empty(width, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sizes = (T, NB, N, TILE_T, n_blocks, dev.index, float(dt), math.log(dt), stream)
+    sizes = (T, NB, N, plan.tile_t, plan.grid_x, plan.grid_y, plan.smem_bytes,
+             dev.index, float(dt), math.log(dt), stream)
     ins = (x_f.data_ptr(), u.data_ptr(), i_rest.data_ptr(), s.data_ptr())
+    scratch = (part.data_ptr(), out.data_ptr(), _barrier(dev, stream).data_ptr())
     if with_grad:
         d_irest = torch.empty((T, N), dtype=torch.float32, device=dev)
-        err = lib.fused_ll_vg(*ins, d_irest.data_ptr(), part.data_ptr(), out.data_ptr(), *sizes)
+        err = lib.fused_ll_vg(*ins, d_irest.data_ptr(), *scratch, *sizes)
     else:
-        err = lib.fused_ll_fwd(*ins, part.data_ptr(), out.data_ptr(), *sizes)
+        err = lib.fused_ll_fwd(*ins, *scratch, *sizes)
     if err != 0:
         msg = lib.fused_ll_error_string(err).decode()
         raise RuntimeError(f"fused Poisson-LL kernel launch failed: {msg} ({err})")
     LAUNCHES["vg" if with_grad else "fwd"] += 1
     if with_grad:
-        return out[-1], out[:-1].view(NB, N), d_irest
+        return out[NB * N], out[: NB * N].view(NB, N), d_irest
     return out[0]
 
 

@@ -13,8 +13,9 @@ import torch
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
 
-def params_from_numpy(params: dict, device="cpu", dtype=torch.float32) -> dict:
-    """``dict[str, array-like]`` → ``dict[str, Tensor]`` on ``device``.
+def params_from_numpy(params: dict, device="cuda", dtype=torch.float32) -> dict:
+    """``dict[str, array-like]`` → ``dict[str, Tensor]`` on ``device``, the
+    current CUDA device unless the caller passes ``device="cpu"``.
 
     Floating (and boolean) leaves become ``dtype``; integer leaves, such as
     the SBM types ``y``, become int64.
