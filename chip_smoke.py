@@ -72,7 +72,7 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip()
 
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peaks (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak rates
 FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 
 
