@@ -26,6 +26,16 @@ Phases, each of which raises on a mismatch or a non-finite value:
    kick must have gone through K2 and every value-only log-joint through K1.
 4. The inner-loop number: value+grad of the full log-joint in evals/s,
    through K2 and through the plain per-neuron torch path.
+5. The flagship's Gibbs sampler on phase 3's population, data and MAP fit:
+   theano_pyglm_torch.scripts.rgc_flagship.run with 4 chains, 40 warmup and
+   20 sampling sweeps of the full sweep (glm Laplace block, HMC on the
+   impulse logits and the latent locations, weight hypers, collapsed (A, W)
+   birth-death, rotation), then R-hat, ESS and link-prediction AUC. The
+   kernels' launch counts over the run must equal what the sweep implies;
+   every leaf finite, A binary, accept rates in range; psi, the log-joint and
+   the glm Laplace mode of chain 0's final state on the card in float32
+   against the CPU in float64. Printed: ms per sweep (4 chains and one),
+   ms and synchronizing calls per stage, device busy time of one sweep.
 
 The line before the last two is one JSON object describing the kernels, the
 next the card's name and power limit; the last is
@@ -39,6 +49,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -46,17 +57,21 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from theano_pyglm_torch import Population, make_model  # noqa: E402
+from theano_pyglm_torch.inference import gibbs  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
 from theano_pyglm_torch.inference.map import map_fit, split_params  # noqa: E402
+from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, make_sweep  # noqa: E402
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
 from theano_pyglm_torch.ops.cuda_loader import SOURCE, build_fused_ll, load_fused_ll  # noqa: E402
+from theano_pyglm_torch.scripts import rgc_flagship  # noqa: E402
 
 N = 27  # neurons (the flagship, scripts/rgc_flagship.py)
 T = 60_000  # 1 ms bins
 DT = 1e-3
 SEED = 0
 HMC_TRANSITIONS, LEAPFROG_STEPS = 20, 10
+GIBBS_CHAINS, GIBBS_WARMUP, GIBBS_SAMPLES = 4, 40, 20  # 40: the least warmup with adaptation windows
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -235,16 +250,22 @@ def check_kernels(dev) -> dict:
 
 
 class CountingPopulation(Population):
-    """A Population that counts its log-joint evaluations, with and without a
-    gradient, so the launch counts can be held against them."""
+    """A Population that counts its log-joint and log-likelihood evaluations,
+    with and without a gradient, so the launch counts can be held against
+    them."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.evals = {"grad": 0, "value": 0}
+        self.ll_evals = {"grad": 0, "value": 0}
 
     def log_joint(self, params, data):
         self.evals["grad" if torch.is_grad_enabled() else "value"] += 1
         return super().log_joint(params, data)
+
+    def log_likelihood(self, params, data):
+        self.ll_evals["grad" if torch.is_grad_enabled() else "value"] += 1
+        return super().log_likelihood(params, data)
 
 
 def flagship_slice(dev) -> dict:
@@ -321,7 +342,7 @@ def flagship_slice(dev) -> dict:
     require(all(bool(torch.isfinite(v).all()) for v in state.position.values()), "non-finite HMC position")
     require(hmc_vg >= 2 * LEAPFROG_STEPS * HMC_TRANSITIONS, f"K2 launches during HMC: {hmc_vg}")
     require(hmc_fwd >= HMC_TRANSITIONS, f"K1 launches during HMC: {hmc_fwd}")
-    return {"pop": pop, "params": fit, "data": data, "spec": spec}
+    return {"pop": pop, "params": fit, "data": data, "spec": spec, "true": true, "stim": stim}
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -361,6 +382,149 @@ def inner_loop(sl, card: str) -> None:
         log(f"inner loop N={N} T={T} value+grad, {name}: {rate:.1f} evals/s [{card}]")
 
 
+# --- phase 5 ----------------------------------------------------------------
+
+
+def count_syncs(fn):
+    """(fn(), the synchronizing CUDA calls it made as 'file:line' of the
+    Python caller, one entry each), found by PyTorch's sync debug mode, which
+    warns at each one."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    return out, where
+
+
+def device_busy_ms(fn) -> tuple:
+    """(wall ms, summed ms of the device's activities, their count) of one
+    call of fn, from torch.profiler's trace (one stream: no overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, sum(e.time_range.elapsed_us() for e in on_device) / 1e3, len(on_device)
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def gibbs_phase(sl, card: str) -> dict:
+    """The flagship's sampler through rgc_flagship.run; returns the kernels'
+    launches over the run."""
+    pop, data, true, fit = sl["pop"], sl["data"], sl["true"], sl["params"]
+    launches0, ll0 = dict(kernels.LAUNCHES), dict(pop.ll_evals)
+    t0 = time.perf_counter()
+    samples, diag, states, summary = rgc_flagship.run(
+        pop, data, true, fit, seed=SEED, n_chains=GIBBS_CHAINS, n_iters=GIBBS_SAMPLES,
+        n_warmup=GIBBS_WARMUP, thin=1, n_leapfrog=LEAPFROG_STEPS, init_jitter=0.05,
+        chunk_size=GIBBS_SAMPLES,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] - launches0[k] for k in launches0}
+    ll_evals = {k: pop.ll_evals[k] - ll0[k] for k in ll0}
+    sweeps = GIBBS_CHAINS * (GIBBS_WARMUP + GIBBS_SAMPLES)
+    # Per sweep of one chain only the impulse block evaluates the fused
+    # likelihood: a value-only re-anchoring of its log-density (K1), then one
+    # HMC transition of L leapfrog steps, two gradients a step (K2 each) and a
+    # value-only end point (K1). So K2 = chains·sweeps·2L, K1 = chains·sweeps·2.
+    want = {"fwd": sweeps * 2, "vg": sweeps * 2 * LEAPFROG_STEPS}
+    log(f"Gibbs: {GIBBS_CHAINS} chains x ({GIBBS_WARMUP} warmup + {GIBBS_SAMPLES} samples) in {t_run:.2f} s "
+        f"({1e3 * t_run / (GIBBS_WARMUP + GIBBS_SAMPLES):.1f} ms per 4-chain sweep, sampler and summary) "
+        f"[{card}]; launches {launches}, implied {want}; likelihood evaluations {ll_evals}")
+    require(launches == want, f"kernel launches {launches} != {want} implied by the sweep")
+    require(ll_evals == {"grad": want["vg"], "value": want["fwd"]},
+            f"likelihood evaluations {ll_evals}: some took the plain path on the card")
+
+    for c, st in enumerate(states):
+        for k, v in st["params"].items():
+            require(bool(torch.isfinite(v).all()), f"chain {c}: non-finite {k}")
+        A = st["params"]["A"]
+        require(bool(((A == 0) | (A == 1)).all()), f"chain {c}: A not binary")
+    for k, v in samples.items():
+        require(bool(np.isfinite(v).all()), f"non-finite samples of {k}")
+    require(bool(np.isin(samples["A"], (0.0, 1.0)).all()), "sampled A not binary")
+    for name in ("imp", "latent"):
+        acc = diag[f"accept_rate_{name}"]
+        require(bool(((acc > 0) & (acc <= 1)).all()), f"{name} accept rates {acc}")
+    require(bool((diag["accept_rate_glm"] > 0.5).all()), f"glm Laplace accept rates {diag['accept_rate_glm']}")
+    require(bool((diag["accept_rate_adjacency"] > 0).all()),
+            f"birth-death accept rates {diag['accept_rate_adjacency']}")
+    min_ess = min(v["min_ess"] for v in summary["convergence"].values())
+    log(f"accept rates: glm {diag['accept_rate_glm']}, imp {diag['accept_rate_imp']}, "
+        f"latent {diag['accept_rate_latent']}, adjacency {diag['accept_rate_adjacency']}")
+    log(f"link-prediction AUC {summary['link_prediction_auc']}, smallest ESS {min_ess:.2f} "
+        f"(20 draws: reported, not checked) [{card}]")
+
+    # card (float32) against the CPU (float64) on chain 0's final state
+    p0 = states[0]["params"]
+    cpu = Population(sl["spec"], device="cpu", dtype=torch.float64)
+    data64 = cpu.prepare_data(data["S"].cpu().double(), stim=sl["stim"])
+    p64 = {k: v.detach().cpu().double() for k, v in p0.items()}
+    theta0 = _glm_theta0(pop, data, fit, "basis")
+    with torch.no_grad():
+        err_psi = rel_l2(gibbs.compute_psi(pop, p0, data), gibbs.compute_psi(cpu, p64, data64))
+        lj32, lj64 = float(pop.log_joint(p0, data)), float(cpu.log_joint(p64, data64))
+        th32, _ = gibbs.glm_laplace_fit(pop, p0, data, theta0)
+        th64, _ = gibbs.glm_laplace_fit(cpu, p64, data64, theta0.cpu().double())
+    err_lj, err_th = abs(lj32 - lj64) / abs(lj64), rel_l2(th32, th64)
+    log(f"card f32 vs CPU f64 on chain 0's final state: psi rel-L2 {err_psi:.3e}, log-joint rel {err_lj:.3e} "
+        f"({lj32:.3f} vs {lj64:.3f}), Laplace theta* rel-L2 {err_th:.3e}")
+    require(err_psi <= 1e-5, f"psi rel err {err_psi}")
+    require(err_lj <= 1e-5, f"log-joint rel err {err_lj}")
+    require(err_th <= 1e-4, f"Laplace theta* rel err {err_th}")
+
+    # times: the full sweep over 4 chains and one, then each stage alone
+    n_rep = 5
+    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(GIBBS_CHAINS)]
+    full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit)
+    sts = list(states)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_rep):
+        sts = [full(g, s, False, 1.0) for g, s in zip(gens, sts)]
+    torch.cuda.synchronize()
+    ms4 = 1e3 * (time.perf_counter() - t0) / n_rep
+    log(f"full sweep, {GIBBS_CHAINS} chains: {ms4:.2f} ms per sweep ({n_rep} sweeps) [{card}]")
+    count_syncs(lambda: None)  # the debug mode's first switch synchronizes once itself
+    sweeps = {None: full}
+    sweeps.update({s: make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, stages=(s,),
+                                 diagnostic=True) for s in SWEEP_STAGES})
+    timed = {}
+    for stage, sweep in sweeps.items():
+        st = sweep(gens[0], states[0], False, 1.0)  # first use: lazy library set-up
+        st, syncs = count_syncs(lambda: sweep(gens[0], st, False, 1.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_rep):
+            st = sweep(gens[0], st, False, 1.0)
+        torch.cuda.synchronize()
+        timed[stage] = (1e3 * (time.perf_counter() - t0) / n_rep, st)
+        log(f"{'full sweep' if stage is None else 'stage ' + stage}, one chain: {timed[stage][0]:.3f} ms per "
+            f"sweep ({n_rep} sweeps); {len(syncs)} synchronizing calls {sorted(set(syncs))} [{card}]")
+    # profiled last: once the profiler has attached, host launches stay slower
+    for stage, sweep in sweeps.items():
+        ms, st = timed[stage]
+        wall, busy, n_dev = device_busy_ms(lambda: sweep(gens[0], st, False, 1.0))
+        log(f"{'full sweep' if stage is None else 'stage ' + stage} under torch.profiler: {n_dev} device "
+            f"activities taking {busy:.3f} ms ({wall:.3f} ms wall profiled); against the unprofiled "
+            f"{ms:.3f} ms the device idles {100 * (1 - busy / ms):.1f} % [{card}]")
+    return launches
+
+
 def main() -> None:
     card = setup()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -373,6 +537,11 @@ def main() -> None:
     require(launches["fwd"] > 0 and launches["vg"] > 0, "a kernel of the path never launched")
 
     inner_loop(sl, card)
+
+    kernels.LAUNCHES.update(fwd=0, vg=0)
+    gibbs_launches = gibbs_phase(sl, card)
+    require(all(v > 0 for v in gibbs_launches.values()), "a kernel of the Gibbs path never launched")
+    launches = {k: launches[k] + gibbs_launches[k] for k in launches}
 
     src = os.path.relpath(SOURCE, REPO)
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",

@@ -7,8 +7,12 @@ module's counterpart sits at the same path:
               spec, and the fused Poisson log-likelihood kernels (CUDA C++
               in ``csrc/``, built with nvcc at first use)
   models/     components, graph + weight priors, Population, zoo
-  inference/  MAP (L-BFGS), smart initialization, HMC
-  utils/      precision policy, numpy <-> torch parameter conversion
+  inference/  MAP (L-BFGS), smart initialization, HMC, the Gibbs sweep
+              stages and the MCMC sampling loop
+  parallel/   independent chains of the sampler
+  utils/      precision policy, numpy <-> torch parameter conversion,
+              convergence diagnostics, time-rescaling KS
+  scripts/    entry points (the flagship run)
 
 Parameters are a plain ``dict[str, torch.Tensor]``; every random draw takes
 a ``torch.Generator``. The package imports torch and never JAX, and imports

@@ -1,0 +1,611 @@
+"""Gibbs sweep stages — adjacency, the glm Laplace block, conjugate hypers,
+the latent-rotation gauge move.
+
+Port of :mod:`theano_pyglm_tpu.inference.gibbs`. Flipping A[n, m] only
+perturbs neuron n's current by W[n,m]·ψ[:, n, m], where
+
+    ψ[t, n, m] = X_imp[t, m, :] · w_eff[n, m, :]
+
+so the adjacency stages update all N postsynaptic rows at once (rows are a
+batch dimension of every tensor) and the entries of a row in sequence (a
+Python loop of fixed length over m, carrying the rows' running currents).
+Inside a stage nothing reads a device value on the host: accept/reject,
+clipping and the escape hatches are tensor ops, and every random number of
+a stage is drawn up front from the caller's ``torch.Generator``, so
+``row_batch`` changes the memory held, not the draws.
+
+Only the exp-Poisson closed forms are ported. The generic (autodiff)
+branches of ``_bin_ll_derivs`` and of the birth–death Newton fit raise
+:class:`NotImplementedError` (ROADMAP.md, queue 1 item 10), as do the SBM
+type and ER density stages for the graphs that need them (item 9). The
+bf16 design branch of ψ waits for the bf16 designs (queue 2, K4).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from theano_pyglm_torch.ops.clipping import clip_exponent, exp_clipped, exponent_active
+from theano_pyglm_torch.ops.distributions import sample_gamma, sample_gaussian
+
+# Proposal-shaping time-subsample geometry of the collapsed (A, W) update.
+# Module-level so tests can shrink them and drive the subsample path on
+# CPU-sized problems.
+SUBSAMPLE_T = 16384  # Newton fits run on at most this many bins
+SUBSAMPLE_BLK = 2048  # contiguous bins per block
+
+_LOG2PI = 1.8378770664093453
+_HALF_LOG2PI = 0.9189385332046727
+_GENERIC = (
+    "only the exp-Poisson closed form is ported; other observation/nonlinearity "
+    "pairs are not ported yet (ROADMAP.md, queue 1 item 10)"
+)
+_SBM_ER = "is not ported yet (ROADMAP.md, queue 1 item 9: SBM and Erdős–Rényi families)"
+
+__all__ = [
+    "compute_psi",
+    "rest_current",
+    "update_adjacency",
+    "update_adjacency_collapsed",
+    "glm_laplace_fit",
+    "update_glm_laplace",
+    "refresh_disconnected_weights",
+    "update_weight_hypers",
+    "update_sbm_types_collapsed",
+    "update_sbm_hypers",
+    "update_er_rho",
+    "update_latent_rotation",
+]
+
+
+# ---------------------------------------------------------------------------
+# currents and ψ
+# ---------------------------------------------------------------------------
+
+
+def compute_psi(pop, params, data) -> torch.Tensor:
+    """Unit-coupling currents ψ (T, N_post, N_pre) (see module docstring)."""
+    w_eff = pop.impulse.effective(params)  # (N, N, B)
+    psi = torch.einsum("tmb,nmb->tnm", data["X_imp"], w_eff)
+    mean = data.get("_X_imp_mean")
+    if mean is not None:
+        psi = psi + torch.einsum("mb,nmb->nm", mean, w_eff)[None]
+    return psi
+
+
+def _psi_from_X(X, mean, w_eff_n) -> torch.Tensor:
+    """ψ of postsynaptic rows from an explicit design block X (T', N, B).
+
+    ``w_eff_n`` is one row's effective filter weights (N_pre, B), giving
+    (N_pre, T'), or a block of R rows (R, N_pre, B), giving (N_pre, R, T').
+    Entry-major: one entry's column of every row is a contiguous (R, T')
+    block. (The JAX function returns one row as (T', N_pre).) ``mean`` is
+    the optional mean-centering correction ``_X_imp_mean`` (N, B).
+    """
+    rows = w_eff_n.reshape(-1, *w_eff_n.shape[-2:])  # (R, M, B)
+    psi = torch.bmm(rows.transpose(0, 1), X.permute(1, 2, 0))  # (M, R, T')
+    if mean is not None:
+        psi = psi + (mean[None] * rows).sum(-1).T[:, :, None]
+    return psi[:, 0] if w_eff_n.ndim == 2 else psi
+
+
+def _row_psi(pop, data, w_eff_n) -> torch.Tensor:
+    """ψ of postsynaptic rows from X_imp (see :func:`_psi_from_X`),
+    computed inside the row update so that with ``row_batch`` the full
+    (T, N, N) tensor is never held."""
+    X = data.get("X_imp")
+    if X is None:
+        raise ValueError(
+            "adjacency updates need a materialized spike design "
+            "(prepare_data(materialize_design=True))"
+        )
+    return _psi_from_X(X, data.get("_X_imp_mean"), w_eff_n)
+
+
+def _map_rows(row_fn, args: tuple, row_batch):
+    """Run ``row_fn`` on all postsynaptic rows as one batch dimension
+    (default), or on ``row_batch`` rows at a time (bounded memory for long
+    recordings or large N). Every argument has rows as its leading
+    dimension; ``row_fn`` returns a tuple of such tensors."""
+    if row_batch is None:
+        return row_fn(*args)
+    n, step = args[0].shape[0], int(row_batch)
+    parts = [row_fn(*(a[i : i + step] for a in args)) for i in range(0, n, step)]
+    return tuple(torch.cat(p, 0) for p in zip(*parts))
+
+
+def rest_current(pop, params, data) -> torch.Tensor:
+    """(T, N) currents from everything except the coupling term."""
+    return pop.bias.current(params, data) + pop.bkgd.current(params, data)
+
+
+def _logit_prior(P) -> torch.Tensor:
+    return torch.log(torch.clamp(P, 1e-12, 1.0)) - torch.log(torch.clamp(1.0 - P, 1e-12, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# adjacency
+# ---------------------------------------------------------------------------
+
+
+def update_adjacency(generator, pop, params, data, row_batch=None, beta=1.0):
+    """Gibbs sweep over all N² adjacency entries with W held.
+
+    p(A[n,m]=1 | rest) ∝ p_prior(n,m) · exp(β·LL_n(I_rest + ψ·W added)),
+    rows in parallel, entries of a row in sequence. ``beta`` tempers the
+    likelihood only (annealed warmup; 1.0 = exact posterior).
+    """
+    if pop.graph.fixed_A:
+        return params
+    S, dt, nlin, obs = data["S"], pop.dt, pop.nlin, pop.observation
+    N = pop.N
+    w_eff = pop.impulse.effective(params)  # (N_post, N_pre, B)
+    I_rest = rest_current(pop, params, data)  # (T, N)
+    W = pop.weights.effective_W(params)
+    logit_prior = _logit_prior(pop.graph.edge_prob(params))
+    u = torch.rand((N, N), generator=generator, dtype=S.dtype, device=S.device)
+
+    def ll_of(S_n, I_n):  # (R, T) -> (R,)
+        return obs.log_likelihood(S_n, I_n, nlin, dt).sum(-1)
+
+    def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, logit_n, u_n):
+        psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T)
+        I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n, A_n * W_n)
+        cols = []
+        for m in range(N):
+            contrib = W_n[:, m, None] * psi_n[m]
+            I_wo = I_n - A_n[:, m, None] * contrib
+            delta = beta * (ll_of(S_n, I_wo + contrib) - ll_of(S_n, I_wo))
+            a_new = (u_n[:, m] < torch.sigmoid(delta + logit_n[:, m])).to(A_n.dtype)
+            I_n = I_wo + a_new[:, None] * contrib
+            cols.append(a_new)
+        return (torch.stack(cols, 1),)
+
+    (A_new,) = _map_rows(
+        row_update,
+        (params["A"], W, w_eff, S.T.contiguous(), I_rest.T.contiguous(), logit_prior, u),
+        row_batch,
+    )
+    return {**params, "A": A_new}
+
+
+def update_adjacency_collapsed(
+    generator, pop, params, data, n_newton: int = 8, return_accept: bool = False,
+    row_batch=None, beta=1.0,
+):
+    """Joint (A[n,m], W[n,m]) birth–death update (the JAX function's
+    docstring has the full argument): per entry, Newton on the 1-D weight
+    from the prior mean gives a Laplace fit of the edge's collapsed
+    conditional; its evidence shapes a birth probability (clipped to
+    [σ(−3.5), σ(3.5)]), the weight is proposed from the defensive mixture
+    0.8·N(w*, s²) + 0.2·prior, and an exact independence-MH step on the
+    full-T likelihood accepts or rejects the pair.
+
+    Proposal shaping (Newton, evidence) runs on a time subsample of at most
+    ``SUBSAMPLE_T`` bins: ``SUBSAMPLE_T // SUBSAMPLE_BLK`` contiguous blocks
+    at random offsets drawn once per call, gathered as one index. Only the
+    exp-Poisson closed form is ported. Returns the new params, and with
+    ``return_accept`` also the mean acceptance over all N² entries.
+    """
+    f, dev = pop.dtype, pop.device
+    if pop.graph.fixed_A:
+        one = torch.ones((), dtype=f, device=dev)
+        return (params, one) if return_accept else params
+    if not pop.weights.has_W:
+        out = update_adjacency(generator, pop, params, data, row_batch=row_batch, beta=beta)
+        one = torch.ones((), dtype=f, device=dev)
+        return (out, one) if return_accept else out
+    if not (pop.nlin.name == "exp" and pop.observation.name == "poisson"):
+        raise NotImplementedError(f"update_adjacency_collapsed: {_GENERIC}")
+
+    S, dt = data["S"], pop.dt
+    N = pop.N
+    w_eff_all = pop.impulse.effective(params)  # (N_post, N_pre, B)
+    I_rest = rest_current(pop, params, data)
+    MU, SIG = pop.weights.prior_mu_sigma(params)
+    logit_prior = _logit_prior(pop.graph.edge_prob(params))
+    mean = data.get("_X_imp_mean")
+
+    T_full = int(S.shape[0])
+    T_sub = min(T_full, SUBSAMPLE_T)
+    use_sub = T_sub < T_full
+    if use_sub:
+        if "X_imp" not in data:
+            _row_psi(pop, data, w_eff_all[0])  # raises the designed message
+        blk = SUBSAMPLE_BLK
+        n_blk = T_sub // blk
+        offs = torch.randint(0, T_full - blk, (n_blk,), generator=generator, device=dev)
+        idx = (offs[:, None] + torch.arange(blk, device=dev)).reshape(-1)
+        X_sub = data["X_imp"].index_select(0, idx)  # (n_blk·blk, N, B)
+        S_sub, I_rest_sub = S.index_select(0, idx), I_rest.index_select(0, idx)
+        scale_sub = T_full / T_sub
+    else:
+        S_sub, I_rest_sub = S, I_rest
+        scale_sub = 1.0
+    # every draw of the sweep, entry-indexed: birth, mixture, MH uniforms and
+    # the one normal shared by the mutually exclusive weight proposals
+    u_a, u_mix, u_acc = torch.rand((3, N, N), generator=generator, dtype=f, device=dev)
+    z = torch.randn((N, N), generator=generator, dtype=f, device=dev)
+
+    def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, mu_n, sig_n, logit_n,
+                   S_sub_n, I_rest_sub_n, ua_n, umix_n, uacc_n, z_n):
+        psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T)
+        I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n, A_n * W_n)
+        if use_sub:
+            psi_sub = _psi_from_X(X_sub, mean, w_eff_n)
+            I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub, A_n * W_n)
+        else:
+            psi_sub, S_sub_n = psi_n, S_n
+        a_sub_all = torch.einsum("rt,mrt->rm", S_sub_n, psi_sub) * scale_sub  # Σ S·ψ
+        # the carried current's likelihood scalars Σ S·clip(I_n), Σ e^{clip(I_n)}
+        I_c = clip_exponent(I_n)
+        sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
+        A_cols, W_cols, acc_cols = [], [], []
+        for m in range(N):
+            a_cur, w_cur = A_n[:, m], W_n[:, m]
+            g_cur = (a_cur * w_cur)[:, None]
+            psi_m = psi_n[m]
+            I_wo = I_n - g_cur * psi_m
+            mu, sig, logit = mu_n[:, m], sig_n[:, m], logit_n[:, m]
+            prec = 1.0 / (sig * sig)
+            if use_sub:
+                psi_s = psi_sub[m]
+                I_s = I_sub - g_cur * psi_s
+            else:
+                psi_s, I_s = psi_m, I_wo
+            a_sub = a_sub_all[:, m]
+            I0s_c = clip_exponent(I_s)
+            sum_E0s = torch.exp(I0s_c).sum(-1)
+            sum_S_I0s = (S_sub_n * I0s_c).sum(-1)
+
+            def g_grad_hess(w):
+                # subsampled ΔLL derivatives plus the Gaussian prior's
+                up = exp_clipped(I_s + w[:, None] * psi_s) * psi_s
+                d1 = beta * (a_sub - dt * scale_sub * up.sum(-1))
+                d2 = beta * (-dt * scale_sub * (up * psi_s).sum(-1))
+                return d1 - (w - mu) * prec, d2 - prec
+
+            # Newton from the prior mean: a state-independent seed, so the
+            # proposal is a genuine independence proposal (the JAX package's
+            # A/B seed switch _SEED_MODE='state' is not ported)
+            w_star = mu
+            for _ in range(n_newton):
+                d1, d2 = g_grad_hess(w_star)
+                w_star = w_star - d1 / torch.minimum(d2, -0.1 * prec)
+            h_star = torch.minimum(g_grad_hess(w_star)[1], -0.1 * prec)
+            s = torch.sqrt(-1.0 / h_star)
+
+            I1 = clip_exponent(I_s + w_star[:, None] * psi_s)
+            dll_star = beta * scale_sub * (
+                ((S_sub_n * I1).sum(-1) - sum_S_I0s) - dt * (torch.exp(I1).sum(-1) - sum_E0s)
+            )
+            zs = (w_star - mu) / sig
+            log_z1 = dll_star - 0.5 * (zs * zs + _LOG2PI) - torch.log(sig) + 0.5 * _LOG2PI + torch.log(s)
+            p_birth = torch.sigmoid(torch.clamp(logit + log_z1, -3.5, 3.5))
+
+            a_prop = (ua_n[:, m] < p_birth).to(f)
+            w_prior = mu + sig * z_n[:, m]
+            w_birth = torch.where(umix_n[:, m] < 0.8, w_star + s * z_n[:, m], w_prior)
+            w_prop = torch.where(a_prop > 0, w_birth, w_prior)
+
+            # exact full-T ΔLL at the proposal; the current state's is free
+            # from the carried scalars (multiplied by a=0 when A[n,m]=0)
+            I_wo_c = clip_exponent(I_wo)
+            I1p_c = clip_exponent(I_wo + w_prop[:, None] * psi_m)
+            sum_S_Iwo = (S_n * I_wo_c).sum(-1)
+            sum_E_wo = torch.exp(I_wo_c).sum(-1)
+            dll_prop = beta * (((S_n * I1p_c).sum(-1) - sum_S_Iwo) - dt * (torch.exp(I1p_c).sum(-1) - sum_E_wo))
+            dll_cur = beta * ((sS - sum_S_Iwo) - dt * (sE - sum_E_wo))
+
+            def log_target(a, w, dll_w):
+                zp = (w - mu) / sig
+                return -0.5 * (zp * zp + _LOG2PI) - torch.log(sig) + a * (dll_w + logit)
+
+            def log_proposal(a, w):
+                zq = (w - w_star) / s
+                lq_hat = -0.5 * (zq * zq + _LOG2PI) - torch.log(s)
+                zp = (w - mu) / sig
+                lq0 = -0.5 * (zp * zp + _LOG2PI) - torch.log(sig)
+                lq1 = torch.logaddexp(math.log(0.8) + lq_hat, math.log(0.2) + lq0)
+                return torch.where(a > 0, torch.log(p_birth) + lq1, torch.log1p(-p_birth) + lq0)
+
+            log_alpha = (
+                log_target(a_prop, w_prop, dll_prop) - log_proposal(a_prop, w_prop)
+                - log_target(a_cur, w_cur, dll_cur) + log_proposal(a_cur, w_cur)
+            )
+            accept = torch.log(uacc_n[:, m]) < log_alpha
+            a_new = torch.where(accept, a_prop, a_cur)
+            w_new = torch.where(accept, w_prop, w_cur)
+            g_new = (a_new * w_new)[:, None]
+            I_n = I_wo + g_new * psi_m
+            I_c = clip_exponent(I_n)
+            sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
+            if use_sub:
+                I_sub = (I_sub - g_cur * psi_s) + g_new * psi_s
+            A_cols.append(a_new)
+            W_cols.append(w_new)
+            acc_cols.append(accept)
+        acc = torch.stack(acc_cols, 1).to(f).mean(1)
+        return torch.stack(A_cols, 1), torch.stack(W_cols, 1), acc
+
+    A_new, W_new, acc = _map_rows(
+        row_update,
+        (params["A"], params["W"], w_eff_all, S.T.contiguous(), I_rest.T.contiguous(), MU, SIG,
+         logit_prior, S_sub.T.contiguous(), I_rest_sub.T.contiguous(), u_a, u_mix, u_acc, z),
+        row_batch,
+    )
+    out = {**params, "A": A_new, "W": W_new}
+    return (out, acc.mean()) if return_accept else out
+
+
+# ---------------------------------------------------------------------------
+# the glm Laplace block
+# ---------------------------------------------------------------------------
+
+
+def _bin_ll_derivs(S, I, obs, nlin, dt):
+    """Elementwise (d/dI, d²/dI²) of the per-bin log-likelihood at I, by the
+    closed form of the exp-Poisson clipped-exp model."""
+    if obs.name == "poisson" and nlin.name == "exp":
+        lam_dt = exp_clipped(I) * dt
+        mask = exponent_active(I).to(I.dtype)
+        return (S - lam_dt) * mask, -lam_dt * mask
+    raise NotImplementedError(f"_bin_ll_derivs: {_GENERIC}")
+
+
+def _cholesky_or_nan(M) -> torch.Tensor:
+    """Batched lower Cholesky factor. A matrix that is not positive definite
+    gives NaN in its factor's lower triangle, as ``jnp.linalg.cholesky``
+    does, decided on the device: ``cholesky_ex`` reports ``info`` without a
+    host check."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info != 0)[..., None, None], torch.full_like(L, torch.nan).tril(), L)
+
+
+def _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta=1.0, n_newton: int = 6):
+    """The deterministic part of the Laplace block: ``n_newton`` Newton
+    steps from ``theta0`` to each neuron's conditional mode θ*, then the
+    Cholesky factor C of −H* (C Cᵀ = −H*, NaN where −H* is not positive
+    definite). The design Φ (T, D) is shared by the neurons (the per-neuron
+    designs of the spatiotemporal and shared stimuli wait for queue 1 item
+    10). Returns (θ* (N, D), C (N, D, D))."""
+    prior_prec = 1.0 / (prior_sd * prior_sd)
+    eye_prec = torch.diag_embed(prior_prec.expand_as(theta0))
+
+    def grad_negH(theta):
+        d1, d2 = _bin_ll_derivs(S, I0 + Phi @ theta.T, obs, nlin, dt)
+        # curvature clamp (proposal shaping only; the MH ratio is exact)
+        d2 = torch.clamp(d2, max=0.0)
+        negH = -((d2.T[:, :, None] * Phi[None]).transpose(1, 2) @ Phi)  # Σ_t d2·φφᵀ per neuron
+        return beta * (d1.T @ Phi) - (theta - prior_mu) * prior_prec, beta * negH + eye_prec
+
+    theta = theta0
+    for _ in range(n_newton):
+        g, nH = grad_negH(theta)
+        theta = theta + torch.linalg.solve_ex(nH, g[..., None])[0][..., 0]
+    _, negH = grad_negH(theta)
+    return theta, _cholesky_or_nan(negH)
+
+
+def _laplace_mh_step(
+    generator, S, dt, obs, nlin, I0, Phi, theta_cur, theta_star, C, prior_mu, prior_sd, beta=1.0,
+):
+    """Independence MH from the Laplace fit (θ*, C): the proposal is the
+    defensive mixture 0.9·N(θ*, (−H*)⁻¹) + 0.1·prior, per neuron. Returns
+    (θ_new (N, D), accept (N,) bool).
+
+    A non-finite current target or reverse density is an escape hatch
+    (accept any finite proposal); a non-finite proposal is rejected. All of
+    it is tensor arithmetic, so a NaN factor never reaches the host.
+    """
+    N, D = theta_cur.shape
+    f = theta_cur.dtype
+    log_det_C = torch.log(torch.diagonal(C, dim1=1, dim2=2)).sum(1)
+    z = torch.randn((N, D), generator=generator, dtype=f, device=theta_cur.device)
+    u_mix, u_acc = torch.rand((2, N), generator=generator, dtype=f, device=theta_cur.device)
+    # θ' = θ* + C⁻ᵀ z  ⇒  cov = C⁻ᵀ C⁻¹ = (−H*)⁻¹
+    delta = torch.linalg.solve_triangular(C.transpose(1, 2), z[..., None], upper=True)[..., 0]
+    # z serves both mutually exclusive branches: each alone is the right draw
+    theta_prop = torch.where((u_mix < 0.9)[:, None], theta_star + delta, prior_mu + prior_sd * z)
+
+    def log_q(theta):
+        r = torch.einsum("nij,ni->nj", C, theta - theta_star)  # Cᵀ(θ−θ*)
+        lq_hat = log_det_C - 0.5 * (r * r).sum(1) - D * _HALF_LOG2PI
+        zp = (theta - prior_mu) / prior_sd
+        lq_prior = (-0.5 * zp * zp - torch.log(prior_sd) - _HALF_LOG2PI).sum(1)
+        return torch.logaddexp(math.log(0.9) + lq_hat, math.log(0.1) + lq_prior)
+
+    def log_target(theta):
+        ll = obs.log_likelihood(S, I0 + Phi @ theta.T, nlin, dt).sum(0)  # (N,)
+        zp = (theta - prior_mu) / prior_sd
+        return beta * ll - 0.5 * (zp * zp).sum(1)
+
+    t_prop = log_target(theta_prop)
+    t_cur = log_target(theta_cur)
+    t_cur = torch.where(torch.isfinite(t_cur), t_cur, -torch.inf)
+    t_prop = torch.where(torch.isfinite(t_prop), t_prop, -torch.inf)
+    lq_cur, lq_prop = log_q(theta_cur), log_q(theta_prop)
+    log_alpha = t_prop - lq_prop - t_cur + lq_cur
+    fixable = ~torch.isfinite(lq_cur) & torch.isfinite(t_prop - lq_prop)
+    log_alpha = torch.where(fixable, torch.inf, log_alpha)
+    log_alpha = torch.where(torch.isnan(log_alpha), -torch.inf, log_alpha)
+    accept = torch.log(u_acc) < log_alpha
+    return torch.where(accept[:, None], theta_prop, theta_cur), accept
+
+
+def _laplace_mh_block(
+    generator, S, dt, obs, nlin, I0, Phi, theta_cur, theta0,
+    prior_mu, prior_sd, beta=1.0, n_newton: int = 6,
+):
+    """Per-neuron Laplace independence-MH on a linear current block
+    I_n = I0_n + Φ θ_n (the JAX function's docstring has the argument):
+    :func:`_laplace_fit`, then :func:`_laplace_mh_step`. ``prior_mu`` and
+    ``prior_sd`` are tensors of shape (D,) or (N, D). Returns
+    (θ_new (N, D), accept (N,) bool)."""
+    theta_star, C = _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta, n_newton)
+    return _laplace_mh_step(
+        generator, S, dt, obs, nlin, I0, Phi, theta_cur, theta_star, C, prior_mu, prior_sd, beta
+    )
+
+
+def _bias_bkgd_scalars(pop):
+    """(b_mu, b_sd, s_mu, s_sd) from the spec — the one extraction every glm
+    Laplace variant uses (defaults match models.zoo)."""
+    bspec = pop.spec.get("bias", {})
+    kspec = pop.spec.get("bkgd", {})
+    return (
+        float(bspec.get("mu", 2.0)),
+        float(bspec.get("sigma", 1.0)),
+        float(kspec.get("mu", 0.0)),
+        float(kspec.get("sigma", 1.0)),
+    )
+
+
+def _glm_prior_rows(pop, D):
+    """(prior_mu, prior_sd) rows [bias; stimulus-weights×(D−1)] on the
+    population's device, made by fills: a host-to-device copy, as item
+    assignment of a Python number makes, would wait for the stream."""
+    b_mu, b_sd, s_mu, s_sd = _bias_bkgd_scalars(pop)
+
+    def row(first, rest):
+        full = [torch.full((n,), v, dtype=pop.dtype, device=pop.device) for n, v in ((1, first), (D - 1, rest))]
+        return torch.cat(full)
+
+    return row(b_mu, s_mu), row(b_sd, s_sd)
+
+
+def _glm_block(pop, params, data):
+    """The glm block as a linear current block: (Φ (T, D) = [1, X_stim],
+    I0 (T, N) the coupling current, θ_cur (N, D) = [bias, w_stim],
+    prior_mu (D,), prior_sd (D,))."""
+    S = data["S"]
+    ones = torch.ones((S.shape[0], 1), dtype=S.dtype, device=S.device)
+    Phi = torch.cat([ones, data["X_stim"].to(S.dtype)], 1) if "X_stim" in data else ones
+    D = Phi.shape[1]
+    d = dict(data)
+    d["_G"] = pop.coupling(params)
+    I0 = pop.impulse.current(params, d)
+    theta_cur = params["bias"][:, None]
+    if D > 1:
+        theta_cur = torch.cat([theta_cur, params["w_stim"]], 1)
+    return (Phi, I0, theta_cur, *_glm_prior_rows(pop, D))
+
+
+def glm_laplace_fit(pop, params, data, theta0, beta=1.0, n_newton: int = 6):
+    """The glm Laplace block's deterministic part at ``params``: θ* (N, D)
+    of [bias, w_stim] and the Cholesky factor of −H* (N, D, D), from the
+    Newton seed ``theta0`` (N, D)."""
+    Phi, I0, _, prior_mu, prior_sd = _glm_block(pop, params, data)
+    return _laplace_fit(
+        data["S"], pop.dt, pop.observation, pop.nlin, I0, Phi, theta0, prior_mu, prior_sd, beta, n_newton
+    )
+
+
+def update_glm_laplace(
+    generator, pop, params, data, theta0, beta=1.0, n_newton: int = 6,
+    return_accept: bool = False,
+):
+    """Laplace independence-MH for the (bias, w_stim) block of the none and
+    basis stimulus variants (design φ_t = [1, x_t]). With ``return_accept``
+    also the fraction of neurons that accepted."""
+    Phi, I0, theta_cur, prior_mu, prior_sd = _glm_block(pop, params, data)
+    theta_new, accept = _laplace_mh_block(
+        generator, data["S"], pop.dt, pop.observation, pop.nlin, I0, Phi, theta_cur, theta0,
+        prior_mu, prior_sd, beta=beta, n_newton=n_newton,
+    )
+    out = {**params, "bias": theta_new[:, 0]}
+    if Phi.shape[1] > 1:
+        out["w_stim"] = theta_new[:, 1:]
+    if return_accept:
+        return out, accept.to(theta_new.dtype).mean()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# conjugate, gauge and discrete stages
+# ---------------------------------------------------------------------------
+
+
+def refresh_disconnected_weights(generator, pop, params):
+    """Resample W[n,m] | A[n,m]=0 from its prior (the exact conditional)."""
+    if not pop.weights.has_W:
+        return params
+    MU, SIG = pop.weights.prior_mu_sigma(params)
+    W_prior = sample_gaussian(generator, MU, SIG, dtype=params["W"].dtype)
+    return {**params, "W": torch.where(params["A"] > 0, params["W"], W_prior)}
+
+
+def update_sbm_types_collapsed(generator, pop, params):
+    """Collapsed Gibbs over SBM types: the identity for every other graph."""
+    if pop.graph.name != "sbm":
+        return params
+    raise NotImplementedError(f"update_sbm_types_collapsed {_SBM_ER}")
+
+
+def update_sbm_hypers(generator, pop, params):
+    """Conjugate (π, B) resampling of the SBM: the identity for every other graph."""
+    if pop.graph.name != "sbm":
+        return params
+    raise NotImplementedError(f"update_sbm_hypers {_SBM_ER}")
+
+
+def update_er_rho(generator, pop, params):
+    """Conjugate Beta update of an inferred Erdős–Rényi density: the
+    identity for every other graph and for a fixed ρ."""
+    if pop.graph.name != "erdos_renyi" or "rho" not in params:
+        return params
+    raise NotImplementedError(f"update_er_rho {_SBM_ER}")
+
+
+def update_weight_hypers(generator, pop, params):
+    """Conjugate Normal–Inverse-Gamma resampling of the off-diagonal weight
+    prior's (μ_W, σ_W²) given all off-diagonal W entries, when the weight
+    spec sets ``infer_hypers``."""
+    if pop.weights.name != "gaussian" or "W_mu" not in params:
+        return params
+    wspec = pop.spec["network"]["weight"]
+    m0, k0 = float(wspec.get("m0", 0.0)), float(wspec.get("k0", 1.0))
+    a0, b0 = float(wspec.get("a0", 2.0)), float(wspec.get("b0", 2.0))
+
+    N = pop.N
+    w = params["W"]
+    off = 1.0 - torch.eye(N, dtype=w.dtype, device=w.device)
+    n = N * (N - 1)
+    wbar = (w * off).sum() / n
+    ss = (off * (w - wbar) ** 2).sum()
+
+    k_n = k0 + n
+    m_n = (k0 * m0 + n * wbar) / k_n
+    a_n = a0 + n / 2.0
+    b_n = b0 + 0.5 * ss + k0 * n * (wbar - m0) ** 2 / (2.0 * k_n)
+
+    var = b_n / sample_gamma(generator, a_n, 1.0, dtype=w.dtype)
+    mu_new = m_n + torch.sqrt(var / k_n) * sample_gaussian(generator, 0.0, 1.0, (), w.dtype)
+    return {**params, "W_mu": mu_new, "W_sigma": torch.sqrt(var)}
+
+
+def update_latent_rotation(generator, pop, params):
+    """Haar orthogonal Gibbs move on the latent locations of the distance
+    graph: the posterior is invariant under ℓ → ℓQ for every orthogonal Q
+    (edge logits see only pairwise distances; the prior is isotropic), so
+    the move is accepted with probability exactly 1. On O(2) the draw is a
+    uniform angle times a reflection coin; for other D, QR of a Gaussian
+    matrix with the R-diagonal sign fix."""
+    if pop.graph.name != "distance" or "locs" not in params:
+        return params
+    locs = params["locs"]
+    D = locs.shape[-1]
+    if D == 2:
+        u = torch.rand(2, generator=generator, dtype=locs.dtype, device=locs.device)
+        th = 2.0 * math.pi * u[0]
+        refl = 1.0 - 2.0 * (u[1] >= 0.5).to(locs.dtype)
+        c, s = torch.cos(th), torch.sin(th)
+        # rotation by th, times diag(1, refl)
+        Qm = torch.stack([torch.stack([c, -s * refl]), torch.stack([s, c * refl])])
+    else:
+        G = torch.randn((D, D), generator=generator, dtype=locs.dtype, device=locs.device)
+        Qm, R = torch.linalg.qr(G)
+        Qm = Qm * torch.sign(torch.diagonal(R))[None, :]
+    return {**params, "locs": locs @ Qm}

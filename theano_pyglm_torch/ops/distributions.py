@@ -114,6 +114,9 @@ def _param(v, generator: torch.Generator, dtype) -> torch.Tensor:
     if dtype is None:
         floating = isinstance(v, torch.Tensor) and v.is_floating_point()
         dtype = v.dtype if floating else default_float()
+    if isinstance(v, (int, float)):
+        # a fill, not a host-to-device copy that would wait for the stream
+        return torch.full((), float(v), dtype=dtype, device=generator.device)
     return torch.as_tensor(v, dtype=dtype, device=generator.device)
 
 

@@ -1,1 +1,2 @@
-"""Precision policy and numpy <-> torch parameter conversion."""
+"""Precision policy, numpy <-> torch parameter conversion, and copies of
+the numpy convergence diagnostics and time-rescaling KS test."""
