@@ -36,15 +36,32 @@ Phases, each of which raises on a mismatch or a non-finite value:
    the glm Laplace mode of chain 0's final state on the card in float32
    against the CPU in float64. Printed: ms per sweep (4 chains and one),
    ms and synchronizing calls per stage, device busy time of one sweep.
+6. Acceptance configs 1-4 (theano_pyglm_torch/scripts/acceptance.py) at
+   their full N and T, depth cut. For each: K1/K2 against the plain version
+   at the config's shape, as in phase 2; then, with the launch counts set
+   to 0 just before and read just after, the config's path, where every
+   likelihood evaluation must have gone through K1/K2. Config 1 (N=1,
+   T=60,000): MAP at least the truth's log-joint. Config 2 (ER N=10,
+   T=240,000): 3-fold cross-validated lambda over [1, 3, 10], sparse MAP,
+   the posterior-support sampler with 2 chains x (20 + 10) sweeps; K2
+   launches equal to the training segments summed over the evaluations.
+   Config 3 (N=10, T=30,000): MAP, 4 chains x (20 + 10) sweeps. Config 4
+   (SBM N=16, T=60,000, planted partition): 4 chains x (40 annealed warmup
+   + 20) sweeps, launches as the sweep implies, types, pi and B in range,
+   no synchronizing call in the discrete stage or the full sweep, and the
+   collapsed type conditionals and the log-joint of chain 0's final state
+   on the card against the CPU in float64.
 
-The line before the last two is one JSON object describing the kernels, the
-next the card's name and power limit; the last is
+The line before the last two is one JSON object describing the kernels
+(times and errors from phase 2, launches summed over the paths of phases
+3, 5 and 6), the next the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
 import json
 import math
+from collections import Counter
 import os
 import subprocess
 import sys
@@ -59,12 +76,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from theano_pyglm_torch import Population, make_model  # noqa: E402
 from theano_pyglm_torch.inference import gibbs  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
-from theano_pyglm_torch.inference.map import map_fit, split_params  # noqa: E402
+from theano_pyglm_torch.inference.map import cross_validate_lambda, map_fit, sparse_map_fit, split_params  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, make_sweep  # noqa: E402
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
 from theano_pyglm_torch.ops.cuda_loader import SOURCE, build_fused_ll, load_fused_ll  # noqa: E402
-from theano_pyglm_torch.scripts import rgc_flagship  # noqa: E402
+from theano_pyglm_torch.parallel import gibbs_sample_chains  # noqa: E402
+from theano_pyglm_torch.scripts import acceptance, rgc_flagship  # noqa: E402
+from theano_pyglm_torch.utils.diagnostics import adjusted_rand_index  # noqa: E402
 
 N = 27  # neurons (the flagship, scripts/rgc_flagship.py)
 T = 60_000  # 1 ms bins
@@ -166,7 +185,7 @@ def setup() -> str:
 # --- phase 2 ----------------------------------------------------------------
 
 
-def _kernel_operands(dev, clip_entries=0):
+def _kernel_operands(dev, T, N, clip_entries=0):
     NB = N * 5
     r = np.random.RandomState(SEED)
     x = 0.1 * r.randn(T, NB)
@@ -179,13 +198,14 @@ def _kernel_operands(dev, clip_entries=0):
     return [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in (x, u, ir, s)]
 
 
-def check_kernels(dev) -> dict:
-    """K1/K2 against the plain version: value 1e-5 relative, dU 1e-5 relative
-    L2, dI_rest rtol=1e-5 / atol=1e-6 — float32 sums over 1.6M terms taken
-    in another order."""
+def check_kernels(dev, T, N, label, card) -> dict:
+    """K1/K2 against the plain version at (T, NB=5N, N): value 1e-5
+    relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 / atol=1e-6 — float32
+    sums over up to 12M terms taken in another order. Then bit-for-bit
+    repeats, one launch per call, and the median times."""
     max_err = {"fwd": 0.0, "vg": 0.0}
     for clip_entries in (0, 500):
-        ops = _kernel_operands(dev, clip_entries)
+        ops = _kernel_operands(dev, T, N, clip_entries)
         ll_r, du_r, dir_r = kernels.fused_poisson_ll_reference(*ops, DT)
         v = kernels.fused_ll_value(*ops, DT)
         ll, du, dir_ = kernels.fused_ll_value_and_grad(*ops, DT)
@@ -194,7 +214,7 @@ def check_kernels(dev) -> dict:
         rel_v, rel_ll = abs(float(v) - ref) / abs(ref), abs(float(ll) - ref) / abs(ref)
         rel_du = float(torch.linalg.norm(du - du_r) / torch.linalg.norm(du_r))
         err_dir = float((dir_ - dir_r).abs().max())
-        log(f"kernels vs plain (clipped entries {clip_entries}): K1 value rel {rel_v:.3e}; "
+        log(f"{label} T={T} N={N}, kernels vs plain (clipped entries {clip_entries}): K1 value rel {rel_v:.3e}; "
             f"K2 value rel {rel_ll:.3e}, dU rel-L2 {rel_du:.3e}, dI_rest max abs {err_dir:.3e}")
         require(math.isfinite(float(v)) and math.isfinite(float(ll)), "non-finite kernel value")
         require(rel_v <= 1e-5, f"K1 value rel err {rel_v}")
@@ -207,7 +227,7 @@ def check_kernels(dev) -> dict:
             max_err["fwd"] = abs(float(v) - ref)
             max_err["vg"] = max(abs(float(ll) - ref), float((du - du_r).abs().max()), err_dir)
 
-    ops = _kernel_operands(dev)
+    ops = _kernel_operands(dev, T, N)
     launches = dict(kernels.LAUNCHES)
     a, b = kernels.fused_ll_value_and_grad(*ops, DT), kernels.fused_ll_value_and_grad(*ops, DT)
     require(all(torch.equal(x, y) for x, y in zip(a, b)), "K2 not bit-for-bit repeatable")
@@ -224,8 +244,6 @@ def check_kernels(dev) -> dict:
                lambda: kernels.fused_poisson_ll_reference(*ops, DT)),
     }
     flush = torch.empty(40 * 2**20, dtype=torch.float32, device=dev)  # 160 MB
-    one = torch.zeros(1, device=dev)
-    log(f"timing floor: a one-element torch add timed the same way takes {median_ms(lambda: one.add_(1.0)):.4f} ms")
     stats = {}
     for k, (kern, plain) in fns.items():
         warm, cold = median_ms(kern), median_ms(kern, flush=flush)
@@ -233,13 +251,13 @@ def check_kernels(dev) -> dict:
         enqueue = median_ms(kern, device_only=False)
         bound_ms, bound_by = bound(k, ops)
         share = bound_ms / cold
-        log(f"median of 50 calls, {k}: kernel {warm:.4f} ms warm, {cold:.4f} ms cold; "
-            f"plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms cold; "
+        log(f"{label} T={T} NB={5 * N} N={N}, median of 50 calls, {k}: kernel {warm:.4f} ms warm, "
+            f"{cold:.4f} ms cold; plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms cold; "
             f"bound {bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; "
-            f"host-inclusive events (the first port's method) {enqueue:.4f} ms")
+            f"host-inclusive events (the first port's method) {enqueue:.4f} ms [{card}]")
         if warm < bound_ms:
-            log(f"  {k}: the warm time beats the HBM bound because X_f (32 MB) stays in the 50 MB L2; "
-                f"no share is taken from it")
+            log(f"  {k}: the warm time beats the HBM bound because X_f ({ops[0].numel() * 4 / 1e6:.1f} MB) "
+                f"stays in the 50 MB L2; no share is taken from it")
         stats[k] = {"max_abs_err": max_err[k], "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
                     "plain_cold_ms": plain_cold, "bound_ms": bound_ms, "bound_by": bound_by,
                     "share": share, "library_ms": None}
@@ -302,13 +320,13 @@ def flagship_slice(dev) -> dict:
         lp_true = float(pop.log_joint(true, data))
         lp_init = float(pop.log_joint(init, data))
 
-    launches0, evals0 = dict(kernels.LAUNCHES), dict(pop.evals)
+    launches0, evals0 = dict(kernels.LAUNCHES), dict(pop.ll_evals)
     t0 = time.perf_counter()
     fit, lp_map, iters = map_fit(pop, data, init)
     torch.cuda.synchronize()
     t_map = time.perf_counter() - t0
     lp_map = float(lp_map)
-    map_grad_evals = pop.evals["grad"] - evals0["grad"]
+    map_grad_evals = pop.ll_evals["grad"] - evals0["grad"]
     map_vg = kernels.LAUNCHES["vg"] - launches0["vg"]
     log(f"log-joint: truth {lp_true:.3f}, smart init {lp_init:.3f} ({t_init:.2f} s), "
         f"MAP {lp_map:.3f} after {iters} L-BFGS iterations / {map_grad_evals} value+grad "
@@ -421,6 +439,40 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
+def _require_sweep_launches(what, launches, ll_evals, chains, sweeps) -> None:
+    """K1/K2 launches of a sampler run as the sweep implies. Per sweep of one
+    chain only the impulse block evaluates the fused likelihood: a
+    value-only re-anchoring of its log-density (K1), then one HMC transition
+    of L leapfrog steps, two gradients a step (K2 each) and a value-only end
+    point (K1). So K2 = chains·sweeps·2L, K1 = chains·sweeps·2."""
+    want = {"fwd": chains * sweeps * 2, "vg": chains * sweeps * 2 * LEAPFROG_STEPS}
+    require(launches == want, f"{what}: kernel launches {launches} != {want} implied by the sweep")
+    require(ll_evals == {"grad": want["vg"], "value": want["fwd"]},
+            f"{what}: likelihood evaluations {ll_evals}: some took the plain path on the card")
+
+
+def _require_chains(what, states, samples) -> None:
+    for c, st in enumerate(states):
+        for k, v in st["params"].items():
+            require(bool(torch.isfinite(v).all()), f"{what}, chain {c}: non-finite {k}")
+        A = st["params"]["A"]
+        require(bool(((A == 0) | (A == 1)).all()), f"{what}, chain {c}: A not binary")
+    for k, v in samples.items():
+        require(bool(np.isfinite(v).all()), f"{what}: non-finite samples of {k}")
+    require(bool(np.isin(samples["A"], (0.0, 1.0)).all()), f"{what}: sampled A not binary")
+
+
+def _require_accept_rates(what, diag) -> None:
+    """As phase 5: HMC blocks in (0, 1], glm Laplace above 0.5, birth-death above 0."""
+    for name in ("imp", "latent"):
+        if f"accept_rate_{name}" in diag:
+            acc = diag[f"accept_rate_{name}"]
+            require(bool(((acc > 0) & (acc <= 1)).all()), f"{what}: {name} accept rates {acc}")
+    require(bool((diag["accept_rate_glm"] > 0.5).all()), f"{what}: glm accept rates {diag['accept_rate_glm']}")
+    require(bool((diag["accept_rate_adjacency"] > 0).all()),
+            f"{what}: birth-death accept rates {diag['accept_rate_adjacency']}")
+
+
 def gibbs_phase(sl, card: str) -> dict:
     """The flagship's sampler through rgc_flagship.run; returns the kernels'
     launches over the run."""
@@ -436,33 +488,12 @@ def gibbs_phase(sl, card: str) -> dict:
     t_run = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] - launches0[k] for k in launches0}
     ll_evals = {k: pop.ll_evals[k] - ll0[k] for k in ll0}
-    sweeps = GIBBS_CHAINS * (GIBBS_WARMUP + GIBBS_SAMPLES)
-    # Per sweep of one chain only the impulse block evaluates the fused
-    # likelihood: a value-only re-anchoring of its log-density (K1), then one
-    # HMC transition of L leapfrog steps, two gradients a step (K2 each) and a
-    # value-only end point (K1). So K2 = chains·sweeps·2L, K1 = chains·sweeps·2.
-    want = {"fwd": sweeps * 2, "vg": sweeps * 2 * LEAPFROG_STEPS}
     log(f"Gibbs: {GIBBS_CHAINS} chains x ({GIBBS_WARMUP} warmup + {GIBBS_SAMPLES} samples) in {t_run:.2f} s "
         f"({1e3 * t_run / (GIBBS_WARMUP + GIBBS_SAMPLES):.1f} ms per 4-chain sweep, sampler and summary) "
-        f"[{card}]; launches {launches}, implied {want}; likelihood evaluations {ll_evals}")
-    require(launches == want, f"kernel launches {launches} != {want} implied by the sweep")
-    require(ll_evals == {"grad": want["vg"], "value": want["fwd"]},
-            f"likelihood evaluations {ll_evals}: some took the plain path on the card")
-
-    for c, st in enumerate(states):
-        for k, v in st["params"].items():
-            require(bool(torch.isfinite(v).all()), f"chain {c}: non-finite {k}")
-        A = st["params"]["A"]
-        require(bool(((A == 0) | (A == 1)).all()), f"chain {c}: A not binary")
-    for k, v in samples.items():
-        require(bool(np.isfinite(v).all()), f"non-finite samples of {k}")
-    require(bool(np.isin(samples["A"], (0.0, 1.0)).all()), "sampled A not binary")
-    for name in ("imp", "latent"):
-        acc = diag[f"accept_rate_{name}"]
-        require(bool(((acc > 0) & (acc <= 1)).all()), f"{name} accept rates {acc}")
-    require(bool((diag["accept_rate_glm"] > 0.5).all()), f"glm Laplace accept rates {diag['accept_rate_glm']}")
-    require(bool((diag["accept_rate_adjacency"] > 0).all()),
-            f"birth-death accept rates {diag['accept_rate_adjacency']}")
+        f"[{card}]; launches {launches}; likelihood evaluations {ll_evals}")
+    _require_sweep_launches("Gibbs", launches, ll_evals, GIBBS_CHAINS, GIBBS_WARMUP + GIBBS_SAMPLES)
+    _require_chains("Gibbs", states, samples)
+    _require_accept_rates("Gibbs", diag)
     min_ess = min(v["min_ess"] for v in summary["convergence"].values())
     log(f"accept rates: glm {diag['accept_rate_glm']}, imp {diag['accept_rate_imp']}, "
         f"latent {diag['accept_rate_latent']}, adjacency {diag['accept_rate_adjacency']}")
@@ -525,10 +556,303 @@ def gibbs_phase(sl, card: str) -> dict:
     return launches
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+
+#: (T, N) of acceptance configs 1-4 at full size (scripts/acceptance.py)
+ACCEPT_SHAPES = {1: (60_000, 1), 2: (240_000, 10), 3: (30_000, 10), 4: (60_000, 16)}
+XV_LAMBDAS, XV_FOLDS, XV_ITER = [1.0, 3.0, 10.0], 3, 100  # the full run: 8 lambdas, 300 iterations
+POST_CHAINS, POST_WARMUP, POST_SAMPLES = 2, 20, 10  # the full run: 2 x (200 + 400)
+C3_CHAINS, C3_WARMUP, C3_SAMPLES = 4, 20, 10  # the full run: 4 x (500 + 1,000)
+C4_CHAINS, C4_WARMUP, C4_SAMPLES = 4, 40, 20  # the full run: 4 x (1,000 + 2,000)
+
+
+class XVPopulation(CountingPopulation):
+    """Also records, while ``segments`` is a list, the number of training
+    segments of each penalized-objective evaluation: a log-prior with a
+    gradient opens an evaluation, each log-likelihood with a gradient adds
+    a segment to it."""
+
+    segments = None
+
+    def log_prior(self, params):
+        if self.segments is not None and torch.is_grad_enabled():
+            self.segments.append(0)
+        return super().log_prior(params)
+
+    def log_likelihood(self, params, data):
+        if self.segments is not None and torch.is_grad_enabled():
+            self.segments[-1] += 1
+        return super().log_likelihood(params, data)
+
+
+def _counted(pop):
+    """(launches, likelihood evaluations) so far, to difference later."""
+    return dict(kernels.LAUNCHES), dict(pop.ll_evals)
+
+
+def _since(pop, before) -> tuple:
+    launches0, ll0 = before
+    return ({k: kernels.LAUNCHES[k] - launches0[k] for k in launches0},
+            {k: pop.ll_evals[k] - ll0[k] for k in ll0})
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _require_all_fused(what, launches, ll_evals) -> None:
+    """Every likelihood evaluation went through a kernel: K2 for each one
+    with a gradient, K1 for each value-only one."""
+    require(launches == {"vg": ll_evals["grad"], "fwd": ll_evals["value"]},
+            f"{what}: launches {launches} against likelihood evaluations {ll_evals}")
+
+
+def accept_config1(dev, card) -> dict:
+    """Config 1: standard GLM N=1, MAP from the smart init, at least the
+    truth's log-joint (JAX's map_beats_truth). Returns the MAP's launches."""
+    T1, _ = ACCEPT_SHAPES[1]
+    t0 = time.perf_counter()
+    pop, true, S, stim = acceptance.data1(dev, T1, pop_cls=CountingPopulation)
+    data = pop.prepare_data(S, stim=stim)
+    init = smart_initialize(pop, data)
+    before = _counted(pop)
+    fit, lp_map, iters = map_fit(pop, data, init)
+    launches, ll_evals = _since(pop, before)
+    grad_evals = ll_evals["grad"]
+    with torch.no_grad():
+        lp_true = float(pop.log_joint(true, data))
+    torch.cuda.synchronize()
+    log(f"config 1 (standard_glm N=1, T={T1}): {float(S.sum()):.0f} spikes; MAP log-joint {float(lp_map):.3f} "
+        f"against the truth's {lp_true:.3f} after {iters} L-BFGS iterations, {grad_evals} value+grad evaluations; "
+        f"launches {launches}; {time.perf_counter() - t0:.2f} s [{card}]")
+    require(math.isfinite(float(lp_map)) and float(lp_map) >= lp_true - 1e-3,
+            f"config 1: MAP {float(lp_map)} below the truth {lp_true}")
+    require(launches["vg"] >= grad_evals > 0, f"config 1: K2 launches {launches['vg']} < evaluations {grad_evals}")
+    _require_all_fused("config 1 MAP", launches, ll_evals)
+    return launches
+
+
+def accept_config2(dev, card) -> dict:
+    """Config 2: ER N=10 with planted weights, T=240,000: 3-fold
+    cross-validated lambda, sparse MAP at the best lambda, the collapsed
+    (A, W) posterior-support sampler, the three support metrics (with the
+    Wald refit). Returns the launches of these calls, summed."""
+    T2, _ = ACCEPT_SHAPES[2]
+    t0 = time.perf_counter()
+    pop, true, S, stim = acceptance.data2(dev, T2, pop_cls=XVPopulation)
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    data = pop.prepare_data(S, stim=stim)
+    init = smart_initialize(pop, data)
+    init["A"] = torch.ones_like(init["A"])
+
+    before, pop.segments = _counted(pop), []
+    t0 = time.perf_counter()
+    best, fits, scores = cross_validate_lambda(pop, S, stim, init, XV_LAMBDAS, max_iter=XV_ITER, n_folds=XV_FOLDS)
+    torch.cuda.synchronize()
+    t_xv = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    path = dict(launches)
+    segments, pop.segments = pop.segments, None
+    off = ~torch.eye(pop.N, dtype=torch.bool, device=pop.device)
+    l1 = {lam: float(f["W"][off].abs().sum()) for lam, f in zip(XV_LAMBDAS, fits)}
+    log(f"config 2 (ER N=10, T={T2}, simulated in {t_sim:.2f} s): cross-validation over {XV_LAMBDAS}, "
+        f"{XV_FOLDS} folds, {XV_ITER} iterations: best {best}, scores {[round(v, 3) for v in scores]}, "
+        f"fold-0 off-diagonal L1 {l1}; {len(segments)} evaluations over "
+        f"{dict(sorted(Counter(segments).items()))} training segments (count of each); launches {launches}; "
+        f"{t_xv:.2f} s [{card}]")
+    require(all(math.isfinite(v) for v in scores), f"config 2: non-finite scores {scores}")
+    require(l1[10.0] < l1[1.0], f"config 2: lambda=10 fit L1 {l1[10.0]} not below lambda=1's {l1[1.0]}")
+    require(set(segments) == {1, 2}, f"config 2: training segments per evaluation {set(segments)}, want 1 and 2")
+    require(launches["vg"] == sum(segments), f"config 2: K2 launches {launches['vg']} != sum over "
+            f"evaluations of the training segments {sum(segments)}")
+    require(launches["fwd"] >= len(XV_LAMBDAS) * XV_FOLDS, f"config 2: K1 launches {launches['fwd']} < held-out scores")
+    _require_all_fused("config 2 cross-validation", launches, ll_evals)
+
+    before = _counted(pop)
+    params, lp, iters = sparse_map_fit(pop, data, init, best, max_iter=XV_ITER)
+    launches, ll_evals = _since(pop, before)
+    log(f"config 2: sparse MAP at lambda={best}: penalized log-posterior {float(lp):.3f}, {iters} iterations, "
+        f"launches {launches}")
+    require(math.isfinite(float(lp)) and launches["vg"] > 0, "config 2: sparse MAP")
+    _require_all_fused("config 2 sparse MAP", launches, ll_evals)
+    path = _add(path, launches)
+
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    samples, diag, states = gibbs_sample_chains(
+        pop, data, 9, n_chains=POST_CHAINS, n_samples=POST_SAMPLES, n_warmup=POST_WARMUP,
+        chunk_size=POST_SAMPLES, init_params=dict(params), init_jitter=0.05,
+    )
+    torch.cuda.synchronize()
+    t_post = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    _require_sweep_launches("config 2 sampler", launches, ll_evals, POST_CHAINS, POST_WARMUP + POST_SAMPLES)
+    _require_chains("config 2 sampler", states, samples)
+    path = _add(path, launches)
+    before = _counted(pop)
+    support = acceptance.support_estimates(pop, data, params, samples["A"], true["A"].cpu().numpy(), XV_ITER)
+    launches, ll_evals = _since(pop, before)
+    _require_all_fused("config 2 Wald refit", launches, ll_evals)
+    path = _add(path, launches)
+    log(f"config 2: posterior-support sampler {POST_CHAINS} x ({POST_WARMUP} + {POST_SAMPLES}) sweeps in "
+        f"{t_post:.2f} s ({1e3 * t_post / (POST_WARMUP + POST_SAMPLES):.1f} ms per {POST_CHAINS}-chain sweep), "
+        f"launches {launches} [{card}]; support F1 (reported only) lasso "
+        f"{support['support_recovery_lasso']['f1']:.3f}, Wald {support['support_recovery_wald']['f1']:.3f}, "
+        f"posterior median {support['support_recovery']['f1']:.3f}")
+    return path
+
+
+def accept_config3(dev, card) -> dict:
+    """Config 3: N=10, T=30,000, MAP then 4 jittered chains. Returns the
+    launches of the MAP and the sampler, summed."""
+    T3, _ = ACCEPT_SHAPES[3]
+    pop, true, S, stim = acceptance.data3(dev, T3, pop_cls=CountingPopulation)
+    data = pop.prepare_data(S, stim=stim)
+    before = _counted(pop)
+    fit, lp, iters = map_fit(pop, data, smart_initialize(pop, data), max_iter=300)
+    path, ll_evals = _since(pop, before)
+    _require_all_fused("config 3 MAP", path, ll_evals)
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    samples, diag, states = gibbs_sample_chains(
+        pop, data, 3, n_chains=C3_CHAINS, n_samples=C3_SAMPLES, n_warmup=C3_WARMUP, chunk_size=C3_SAMPLES,
+        init_params=fit, init_jitter=0.05,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    sweeps = C3_WARMUP + C3_SAMPLES
+    _require_sweep_launches("config 3", launches, ll_evals, C3_CHAINS, sweeps)
+    _require_chains("config 3", states, samples)
+    _require_accept_rates("config 3", diag)
+    conv = diag["convergence"]
+    log(f"config 3 (ER N=10, T={T3}): MAP {float(lp):.3f} in {iters} iterations; {C3_CHAINS} chains x "
+        f"({C3_WARMUP} + {C3_SAMPLES}) sweeps in {t_run:.2f} s ({1e3 * t_run / sweeps:.1f} ms per "
+        f"{C3_CHAINS}-chain sweep) [{card}]; launches {launches}; accept glm {diag['accept_rate_glm']}, imp "
+        f"{diag['accept_rate_imp']}, adjacency {diag['accept_rate_adjacency']}; max R-hat W "
+        f"{conv['W']['max_rhat']:.3f}, min ESS W {conv['W']['min_ess']:.2f} (reported only)")
+    return _add(path, launches)
+
+
+def accept_config4(dev, card) -> dict:
+    """Config 4: SBM N=16 with the planted partition, T=60,000: 4 chains
+    with annealed warmup through gibbs_sample_chains, exact launches, the
+    discrete stage and the full sweep without a synchronizing call, the
+    card's float32 against the CPU's float64 on chain 0's final state.
+    Returns the sampler's launches."""
+    T4, N4 = ACCEPT_SHAPES[4]
+    pop, true, S, stim = acceptance.data4(dev, T4, pop_cls=CountingPopulation)
+    data = pop.prepare_data(S, stim=stim)
+    init = smart_initialize(pop, data)
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    samples, diag, states = gibbs_sample_chains(
+        pop, data, 5, n_chains=C4_CHAINS, n_samples=C4_SAMPLES, n_warmup=C4_WARMUP, chunk_size=C4_SAMPLES,
+        init_params=init, anneal_frac=0.5,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    path = launches
+    sweeps = C4_WARMUP + C4_SAMPLES
+    _require_sweep_launches("config 4", launches, ll_evals, C4_CHAINS, sweeps)
+    _require_chains("config 4", states, samples)
+    K, alpha0, b0, b1 = gibbs._sbm_hyperparams(pop)
+    for c, st in enumerate(states):
+        p = st["params"]
+        y, pi, Bm = p["y"], p["pi"], p["Bm"]
+        require(y.dtype == torch.int64 and bool(((y >= 0) & (y < K)).all()), f"config 4, chain {c}: y {y}")
+        require(bool((pi > 0).all()) and abs(float(pi.sum()) - 1.0) <= 1e-5, f"config 4, chain {c}: pi {pi}")
+        require(bool(((Bm > 0) & (Bm < 1)).all()), f"config 4, chain {c}: B {Bm}")
+    require(bool(((samples["y"] >= 0) & (samples["y"] < K)).all()), "config 4: sampled y out of range")
+    aris = [float(np.mean([adjusted_rand_index(samples["y"][i, c], acceptance.Y4)
+                           for i in range(C4_SAMPLES)])) for c in range(C4_CHAINS)]
+    log(f"config 4 (SBM N={N4}, T={T4}): {C4_CHAINS} chains x ({C4_WARMUP} warmup, annealed over half, + "
+        f"{C4_SAMPLES}) sweeps in {t_run:.2f} s ({1e3 * t_run / sweeps:.1f} ms per {C4_CHAINS}-chain sweep, "
+        f"sampler and summary) [{card}]; launches {launches}; accept glm {diag['accept_rate_glm']}, imp "
+        f"{diag['accept_rate_imp']}, adjacency {diag['accept_rate_adjacency']}; planted-partition ARI per "
+        f"chain over the {C4_SAMPLES} draws {[round(a, 3) for a in aris]} (reported only)")
+
+    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 20 + c) for c in range(C4_CHAINS)]
+    full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=init)
+    disc = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=init, stages=("discrete",),
+                      diagnostic=True)
+    n_rep = 5
+    for name, sweep in (("discrete stage", disc), ("full sweep", full)):
+        st = sweep(gens[0], states[0], False, 1.0)  # first use: lazy library set-up
+        st, syncs = count_syncs(lambda: sweep(gens[0], st, False, 1.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_rep):
+            st = sweep(gens[0], st, False, 1.0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n_rep
+        log(f"config 4 {name}, one chain: {ms:.3f} ms per sweep ({n_rep} sweeps); {len(syncs)} synchronizing "
+            f"calls {sorted(set(syncs))} [{card}]")
+        require(not syncs, f"config 4 {name}: synchronizing calls {syncs}")
+    sts = list(states)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_rep):
+        sts = [full(g, s, False, 1.0) for g, s in zip(gens, sts)]
+    torch.cuda.synchronize()
+    log(f"config 4 full sweep, {C4_CHAINS} chains: {1e3 * (time.perf_counter() - t0) / n_rep:.2f} ms per sweep "
+        f"({n_rep} sweeps) [{card}]")
+
+    # card (float32) against the CPU (float64) on chain 0's final state
+    p0 = states[0]["params"]
+    cpu = Population(pop.spec, device="cpu", dtype=torch.float64)
+    data64 = cpu.prepare_data(data["S"].cpu().double(), stim=stim)
+    p64 = {k: v.detach().cpu().double() if v.is_floating_point() else v.cpu() for k, v in p0.items()}
+    err_cond = 0.0
+    for n in range(N4):
+        q32 = torch.softmax(gibbs._collapsed_type_logits(p0["A"], p0["y"], n, K, alpha0, b0, b1), 0)
+        q64 = torch.softmax(gibbs._collapsed_type_logits(p64["A"], p64["y"], n, K, alpha0, b0, b1), 0)
+        err_cond = max(err_cond, float((q32.cpu().double() - q64).abs().max()))
+    with torch.no_grad():
+        lj32, lj64 = float(pop.log_joint(p0, data)), float(cpu.log_joint(p64, data64))
+    err_lj = abs(lj32 - lj64) / abs(lj64)
+    log(f"config 4, card f32 vs CPU f64 on chain 0's final state: collapsed type conditionals max abs "
+        f"{err_cond:.3e} over {N4} neurons; log-joint rel {err_lj:.3e} ({lj32:.3f} vs {lj64:.3f})")
+    require(err_cond <= 1e-4, f"config 4: type conditionals abs err {err_cond}")
+    require(err_lj <= 1e-5, f"config 4: log-joint rel err {err_lj}")
+    return path
+
+
+ACCEPT_RUNS = {1: accept_config1, 2: accept_config2, 3: accept_config3, 4: accept_config4}
+
+
+def acceptance_phase(dev, card) -> dict:
+    """Configs 1-4: K1/K2 against the plain version at each config's shape
+    (not counted), then the config. Each config returns the launches of its
+    path's calls alone (MAP, cross-validation, sparse MAP, samplers), each
+    counted from just before the call to just after: not those of its
+    timing sweeps, of the truth's log-joint or of the card-vs-CPU checks.
+    Returns them summed over the configs."""
+    total = {"fwd": 0, "vg": 0}
+    for c, run in ACCEPT_RUNS.items():
+        T_c, N_c = ACCEPT_SHAPES[c]
+        check_kernels(dev, T_c, N_c, f"config {c}", card)
+        kernels.LAUNCHES.update(fwd=0, vg=0)
+        t0 = time.perf_counter()
+        path = run(dev, card)
+        torch.cuda.synchronize()
+        log(f"config {c}: done in {time.perf_counter() - t0:.2f} s; launches on its path {path}, in all "
+            f"{dict(kernels.LAUNCHES)}")
+        require(all(v > 0 for v in path.values()), f"config {c}: a kernel of the path never launched: {path}")
+        total = _add(total, path)
+    return total
+
+
 def main() -> None:
     card = setup()
     dev = torch.device("cuda", torch.cuda.current_device())
-    kstats = check_kernels(dev)
+    one = torch.zeros(1, device=dev)
+    floor = median_ms(lambda: one.add_(1.0))
+    log(f"timing floor: a one-element torch add timed as the kernels are takes {floor:.4f} ms")
+    kstats = check_kernels(dev, T, N, "flagship", card)
 
     kernels.LAUNCHES.update(fwd=0, vg=0)
     sl = flagship_slice(dev)
@@ -542,6 +866,9 @@ def main() -> None:
     gibbs_launches = gibbs_phase(sl, card)
     require(all(v > 0 for v in gibbs_launches.values()), "a kernel of the Gibbs path never launched")
     launches = {k: launches[k] + gibbs_launches[k] for k in launches}
+
+    accept_launches = acceptance_phase(dev, card)
+    launches = {k: launches[k] + accept_launches[k] for k in launches}
 
     src = os.path.relpath(SOURCE, REPO)
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",

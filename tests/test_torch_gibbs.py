@@ -428,9 +428,10 @@ def test_disconnected_weights_come_from_the_prior():
 
 
 def test_discrete_stages_identity_or_raise():
-    """SBM types/hypers and the ER density: the identity on the distance and
-    complete graphs and on a fixed ρ, as in JAX; not ported (queue 1 item 9)
-    where they would act."""
+    """SBM types/hypers and the ER density are the identity where JAX's are:
+    on the distance and complete graphs, on the ER graph with a fixed ρ,
+    and (the SBM stages) on an ER graph with an inferred ρ; the ER stage on
+    the SBM graph."""
     g = torch.Generator().manual_seed(0)
     stages = (gibbs_t.update_sbm_types_collapsed, gibbs_t.update_sbm_hypers, gibbs_t.update_er_rho)
     for name in ("distance_weighted_model", "standard_glm", "sparse_weighted_model"):
@@ -438,11 +439,9 @@ def test_discrete_stages_identity_or_raise():
         for fn in stages:
             assert fn(g, pop_t, p_t) is p_t, (name, fn.__name__)
     pop_t, p_t = (_pair("sbm_weighted_model", 3, T=50)[i] for i in (1, 3))
-    for fn in stages[:2]:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(g, pop_t, p_t)
+    assert gibbs_t.update_er_rho(g, pop_t, p_t) is p_t
     spec = tpu.make_model("sparse_weighted_model", 3)
     spec["network"]["graph"]["infer_rho"] = True
     pop_t, p_t = (build_pair_light(spec, T=50)[i] for i in (1, 3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        gibbs_t.update_er_rho(g, pop_t, p_t)
+    for fn in stages[:2]:
+        assert fn(g, pop_t, p_t) is p_t, fn.__name__

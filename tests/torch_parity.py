@@ -62,3 +62,39 @@ def build_pair_light(spec, T=300, seed=0, spikes=None):
 def rel_err(got, want) -> float:
     got, want = to_np(got).astype(np.float64), to_np(want).astype(np.float64)
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))
+
+
+def jax_config4(T=60_000):
+    """Acceptance config 4's data as the JAX package's ``scripts/acceptance.py``
+    draws them at full size, in its default float32 (float64 draws other
+    spikes): the generating parameters (numpy, float32 or int) and the spike
+    counts (T, 16) as uint8. The stimulus is numpy's and is rebuilt by
+    ``theano_pyglm_torch.scripts.acceptance.reference_stim4``."""
+    from theano_pyglm_torch.scripts.acceptance import BM4, N4, Y4, reference_stim4
+
+    with jax.enable_x64(False):
+        spec = tpu.make_model("sbm_weighted_model", N4)
+        spec["bias"] = {"mu": 2.8, "sigma": 0.3}
+        spec["impulse"]["sigma"] = 0.5
+        pop = tpu.Population(spec)
+        true = dict(pop.sample(jax.random.PRNGKey(4)))
+        r = np.random.RandomState(4)
+        A = (r.rand(N4, N4) < BM4[Y4[:, None], Y4[None, :]]).astype(np.float32)
+        np.fill_diagonal(A, 1.0)
+        W = np.where(r.rand(N4, N4) < 0.7, 2.5, -2.5).astype(np.float32)
+        np.fill_diagonal(W, -2.0)
+        true.update(y=Y4, Bm=BM4.astype(np.float32), pi=np.full(2, 0.5, np.float32), A=A, W=W * A)
+        true = {k: jax.numpy.asarray(v) for k, v in true.items()}
+        S, _ = pop.simulate(jax.random.PRNGKey(5), true, T, stim=reference_stim4(T))
+        return {k: np.asarray(v) for k, v in true.items()}, np.asarray(S).astype(np.uint8)
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/torch_parity.py: rewrite the port's copy of
+    # config 4's JAX-drawn data (the test of test_torch_sbm.py holds it)
+    from theano_pyglm_torch.scripts.acceptance import REFERENCE4
+
+    jax.config.update("jax_platforms", "cpu")
+    true4, S4 = jax_config4()
+    np.savez_compressed(REFERENCE4, S=S4, **true4)
+    print(REFERENCE4, S4.shape, int(S4.sum()), "spikes")

@@ -1,5 +1,5 @@
 """Gibbs sweep stages — adjacency, the glm Laplace block, conjugate hypers,
-the latent-rotation gauge move.
+SBM types and hypers, the ER density, the latent-rotation gauge move.
 
 Port of :mod:`theano_pyglm_tpu.inference.gibbs`. Flipping A[n, m] only
 perturbs neuron n's current by W[n,m]·ψ[:, n, m], where
@@ -14,11 +14,14 @@ clipping and the escape hatches are tensor ops, and every random number of
 a stage is drawn up front from the caller's ``torch.Generator``, so
 ``row_batch`` changes the memory held, not the draws.
 
+The SBM type stage is a loop over neurons in the same way: each neuron's
+class is drawn by Gumbel-max from noise drawn up front, and written back
+with ``torch.where``, so no draw reads back to the host.
+
 Only the exp-Poisson closed forms are ported. The generic (autodiff)
 branches of ``_bin_ll_derivs`` and of the birth–death Newton fit raise
-:class:`NotImplementedError` (ROADMAP.md, queue 1 item 10), as do the SBM
-type and ER density stages for the graphs that need them (item 9). The
-bf16 design branch of ψ waits for the bf16 designs (queue 2, K4).
+:class:`NotImplementedError` (ROADMAP.md, queue 1 item 10). The bf16 design
+branch of ψ waits for the bf16 designs (queue 2, K4).
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ import math
 import torch
 
 from theano_pyglm_torch.ops.clipping import clip_exponent, exp_clipped, exponent_active
-from theano_pyglm_torch.ops.distributions import sample_gamma, sample_gaussian
+from theano_pyglm_torch.ops.distributions import (
+    sample_beta,
+    sample_dirichlet,
+    sample_gamma,
+    sample_gaussian,
+)
 
 # Proposal-shaping time-subsample geometry of the collapsed (A, W) update.
 # Module-level so tests can shrink them and drive the subsample path on
@@ -42,7 +50,6 @@ _GENERIC = (
     "only the exp-Poisson closed form is ported; other observation/nonlinearity "
     "pairs are not ported yet (ROADMAP.md, queue 1 item 10)"
 )
-_SBM_ER = "is not ported yet (ROADMAP.md, queue 1 item 9: SBM and Erdős–Rényi families)"
 
 __all__ = [
     "compute_psi",
@@ -537,26 +544,106 @@ def refresh_disconnected_weights(generator, pop, params):
     return {**params, "W": torch.where(params["A"] > 0, params["W"], W_prior)}
 
 
+def _betaln(a, b):
+    """log B(a, b) = lgamma(a) + lgamma(b) − lgamma(a + b) (torch has no betaln)."""
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+def _sbm_hyperparams(pop):
+    """(K, α0, b0, b1) of the SBM graph spec, with the defaults of models.network."""
+    spec = pop.spec["network"]["graph"]
+    b0, b1 = (float(v) for v in spec.get("B_prior", (1.0, 1.0)))
+    return int(spec.get("K", 2)), float(spec.get("alpha0", 1.0)), b0, b1
+
+
+def _onehot(y, K: int, dtype) -> torch.Tensor:
+    """(N, K) one-hot rows of the types, built on the device
+    (``torch.nn.functional.one_hot`` checks its indices on the host)."""
+    return (y[:, None] == torch.arange(K, device=y.device)).to(dtype)
+
+
+def _collapsed_type_logits(A, y, n: int, K: int, alpha0: float, b0: float, b1: float) -> torch.Tensor:
+    """(K,) unnormalized log p(y_n = k | y_−n, A) with (π, B) marginalized:
+
+        log(α0 + c_k) + Σ_blocks [betaln(b0 + e', b1 + p' − e') − betaln(b0 + e, b1 + p − e)]
+
+    where c, e and p are the class counts and block edge/pair counts over
+    the other neurons, and (e', p') add neuron n's edges and pairs, as class
+    k, to the blocks of row k and of column k (and its self-pair to block
+    (k, k)). Differences of these logits are differences of the log
+    marginal Σ lgamma(α0 + c) + Σ betaln(b0 + E, b1 + P − E)."""
+    N, f = A.shape[0], A.dtype
+    mask = (torch.arange(N, device=A.device) != n).to(f)
+    onehot = _onehot(y, K, f) * mask[:, None]  # n excluded
+    cnt = onehot.sum(0)
+    # block counts over ordered pairs not involving n: onehot's zeroed row n
+    # drops them on both sides of A
+    E = onehot.T @ A @ onehot
+    P = torch.outer(cnt, cnt)
+    eo = (A[n] * mask) @ onehot  # n → class edges
+    ei = (A[:, n] * mask) @ onehot  # class → n edges
+    eye = torch.eye(K, dtype=f, device=A.device)
+    same = eye[:, :, None] * eye[:, None, :]
+    # [candidate c, block row, block col]: row c gains (eo, cnt), column c
+    # gains (ei, cnt), block (c, c) also the self-pair (A[n, n], 1)
+    dE = eye[:, :, None] * eo[None, None, :] + eye[:, None, :] * ei[None, :, None] + same * A[n, n]
+    dP = eye[:, :, None] * cnt[None, None, :] + eye[:, None, :] * cnt[None, :, None] + same
+    base = _betaln(b0 + E, b1 + (P - E))
+    new = _betaln(b0 + E + dE, b1 + (P + dP) - (E + dE))
+    return torch.log(alpha0 + cnt) + (new - base).sum((1, 2))
+
+
 def update_sbm_types_collapsed(generator, pop, params):
-    """Collapsed Gibbs over SBM types: the identity for every other graph."""
+    """Collapsed sequential Gibbs over SBM types, (π, B) marginalized (the
+    JAX function's docstring has why it replaces the uncollapsed kernel in
+    the sweep, and why it is exact there: :func:`update_sbm_hypers` redraws
+    (π, B) right after it). Neurons in turn, y_n ~ softmax of
+    :func:`_collapsed_type_logits`, drawn by Gumbel-max on noise drawn up
+    front. The identity for every other graph."""
     if pop.graph.name != "sbm":
         return params
-    raise NotImplementedError(f"update_sbm_types_collapsed {_SBM_ER}")
+    K, alpha0, b0, b1 = _sbm_hyperparams(pop)
+    A, y = params["A"], params["y"]
+    N, f = A.shape[0], A.dtype
+    u = torch.rand((N, K), generator=generator, dtype=f, device=A.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(f).tiny)))
+    idx = torch.arange(N, device=A.device)
+    for n in range(N):
+        y_n = torch.argmax(_collapsed_type_logits(A, y, n, K, alpha0, b0, b1) + gumbel[n])
+        y = torch.where(idx == n, y_n, y)
+    return {**params, "y": y}
 
 
 def update_sbm_hypers(generator, pop, params):
-    """Conjugate (π, B) resampling of the SBM: the identity for every other graph."""
+    """Conjugate resampling of the SBM: π | y ~ Dir(α0 + counts),
+    B[k,k'] | A, y ~ Beta(b0 + edges, b1 + pairs − edges) over all N²
+    ordered pairs, clipped to [1e-6, 1 − 1e-6]. The identity for every
+    other graph."""
     if pop.graph.name != "sbm":
         return params
-    raise NotImplementedError(f"update_sbm_hypers {_SBM_ER}")
+    K, alpha0, b0, b1 = _sbm_hyperparams(pop)
+    A = params["A"]
+    onehot = _onehot(params["y"], K, A.dtype)
+    counts = onehot.sum(0)
+    pi = sample_dirichlet(generator, alpha0 + counts)
+    edges = onehot.T @ A @ onehot  # (K, K) edge counts between blocks
+    pairs = torch.outer(counts, counts)
+    Bm = sample_beta(generator, b0 + edges, b1 + (pairs - edges))
+    return {**params, "pi": pi, "Bm": torch.clamp(Bm, 1e-6, 1.0 - 1e-6)}
 
 
 def update_er_rho(generator, pop, params):
-    """Conjugate Beta update of an inferred Erdős–Rényi density: the
-    identity for every other graph and for a fixed ρ."""
+    """Conjugate Beta update of an inferred Erdős–Rényi density over all N²
+    entries of A, the diagonal included (the JAX package's counting),
+    clipped to [1e-6, 1 − 1e-6]. The identity for every other graph and for
+    a fixed ρ."""
     if pop.graph.name != "erdos_renyi" or "rho" not in params:
         return params
-    raise NotImplementedError(f"update_er_rho {_SBM_ER}")
+    a0, b0 = (float(v) for v in pop.spec["network"]["graph"].get("rho_prior", (1.0, 1.0)))
+    A = params["A"]
+    n_edges = A.sum()
+    rho = sample_beta(generator, a0 + n_edges, b0 + (A.numel() - n_edges))
+    return {**params, "rho": torch.clamp(rho, 1e-6, 1.0 - 1e-6)}
 
 
 def update_weight_hypers(generator, pop, params):

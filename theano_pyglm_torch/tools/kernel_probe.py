@@ -7,12 +7,15 @@ product, K2's dU product, the epilogue; or the whole body, to time the
 launch alone) and times K1 and K2 through the normal wrappers at the
 flagship shape (T=60,000, NB=135, N=27), warm and with the L2 flushed, plus
 the full kernels at a few shorter T to separate the per-call cost from the
-per-tile cost. A variant's results are wrong by design; only its time is
-read. Run from the repository root on the GPU machine:
+per-tile cost. ``--shape T,NB,N`` probes another shape instead (without
+the shorter T), after printing each kernel's launch plan there. A
+variant's results are wrong by design; only its time is read. Run from the
+repository root on the GPU machine:
 
-    python3 theano_pyglm_torch/tools/kernel_probe.py
+    python3 theano_pyglm_torch/tools/kernel_probe.py [--shape 60000,5,1]
 """
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -58,7 +61,7 @@ EDITS = [
      "if (PROBE_NO_EPI) ll += acc_lo[j][c] + acc_hi[j][c];\n"
      "                    if (!PROBE_NO_EPI && r < rows && n < N) {  // the ragged"),
 ]
-T, NB, N, DT = 60_000, 135, 27, 1e-3
+FLAGSHIP, DT = (60_000, 135, 27), 1e-3
 
 
 def build(out_dir: str) -> dict:
@@ -111,6 +114,9 @@ def median_us(fn, flush=None, n: int = 30) -> float:
 
 
 def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shape", default=",".join(map(str, FLAGSHIP)), help="T,NB,N")
+    T, NB, N = (int(v) for v in p.parse_args().shape.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe.py needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,6 +128,9 @@ def main() -> None:
     flush = torch.empty(40 * 2**20, dtype=torch.float32, device="cuda")
     one = torch.zeros(1, device="cuda")
     print(f"a one-element torch add, the same way: {median_us(lambda: one.add_(1.0)):7.1f} us", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, grad in (("K1", False), ("K2", True)):
+        print(f"{k} at T={T}, NB={NB}, N={N}: {kernels.launch_plan(T, NB, N, sms, grad)}", flush=True)
     load = cuda_loader.load_fused_ll
     try:
         for name, lib in libs.items():
@@ -131,7 +140,7 @@ def main() -> None:
                 call = lambda fn=fn: fn(*ops, DT)  # noqa: E731
                 row.append(f"{k} warm {median_us(call):7.1f} us cold {median_us(call, flush):7.1f} us")
             print(" | ".join(row) + f"  [{card}]", flush=True)
-            if name in ("full", "exit"):
+            if name in ("full", "exit") and (T, NB, N) == FLAGSHIP:
                 for tt in (528, 15_312, 30_624):  # 1 tile of 4 bins, 1 and 2 tiles of 116 per block
                     short = [t[:tt].contiguous() if t.shape[0] == T else t for t in ops]
                     k1 = median_us(lambda: kernels.fused_ll_value(*short, DT))
