@@ -51,10 +51,34 @@ Phases, each of which raises on a mismatch or a non-finite value:
    no synchronizing call in the discrete stage or the full sweep, and the
    collapsed type conditionals and the log-joint of chain 0's final state
    on the card against the CPU in float64.
+7. The sampler's model variants, each path with the launch counts set to
+   0 just before it and read just after. 7a: spatiotemporal_glm at N=27,
+   T=60,000 with its own widths (D_stim=25, stimulus and impulse bases of
+   5): simulate, prepare_data, smart init, MAP, 4 chains x (40 + 20)
+   sweeps of the bilinear glm block; launches exactly as implied, glm
+   acceptance above 0.5, both sub-blocks' Laplace modes (1e-4 rel. L2) and
+   the log-joint (1e-5 rel.) of chain 0's final state against the CPU in
+   float64, 0 synchronizing calls in the glm stage and the full sweep,
+   stage times and device busy time. 7b: standard_glm at N=27, T=60,000
+   with the stimulus type 'shared' (DB=5), 1 chain x (40 + 10): launches,
+   0 synchronizing calls in the glm stage, both sub-blocks' modes against
+   the CPU. 7c: config 3's shape (N=10, T=30,000) with softplus, then with
+   Bernoulli observations, 1 chain x 10 sweeps of the autograd branches: no
+   fused launch, _bin_ll_derivs against the CPU (1e-4). 7d: phase 3's
+   flagship, 1 chain x (40 + 10) with glm_update='hmc' and again with
+   bias_update='ars': launches, accept rates, one host round trip per ARS
+   pass (counted by the sync debug mode), the whitening factor against the
+   CPU (1e-5). 7e: K1/K2 against the plain version at the held-out shape
+   (T=12,000), as in phase 2, then the predictive log-likelihood of 7a's 80
+   draws on the last 20 % of a fresh simulation of 7a's generating
+   parameters: one K1 launch per draw, above a prior draw's. 7f: 7a's
+   model, 2 chains x 30 sweeps checkpointed every 10, uninterrupted and
+   stopped at 20 then resumed: the kept draws and final states equal bit
+   for bit.
 
 The line before the last two is one JSON object describing the kernels
 (times and errors from phase 2, launches summed over the paths of phases
-3, 5 and 6), the next the card's name and power limit; the last is
+3, 5, 6 and 7), the next the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -65,6 +89,7 @@ from collections import Counter
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -74,10 +99,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from theano_pyglm_torch import Population, make_model  # noqa: E402
-from theano_pyglm_torch.inference import gibbs  # noqa: E402
+from theano_pyglm_torch.inference import ars, gibbs  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
 from theano_pyglm_torch.inference.map import cross_validate_lambda, map_fit, sparse_map_fit, split_params  # noqa: E402
-from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, make_sweep  # noqa: E402
+from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, gibbs_sample, make_sweep  # noqa: E402
+from theano_pyglm_torch.inference.mcmc import whitening_factor  # noqa: E402
+from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  # noqa: E402
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
 from theano_pyglm_torch.ops.cuda_loader import SOURCE, build_fused_ll, load_fused_ll  # noqa: E402
@@ -462,14 +489,16 @@ def _require_chains(what, states, samples) -> None:
     require(bool(np.isin(samples["A"], (0.0, 1.0)).all()), f"{what}: sampled A not binary")
 
 
-def _require_accept_rates(what, diag) -> None:
-    """As phase 5: HMC blocks in (0, 1], glm Laplace above 0.5, birth-death above 0."""
+def _require_accept_rates(what, diag, glm_floor=0.5) -> None:
+    """As phase 5: HMC blocks in (0, 1], the glm block above ``glm_floor``
+    (the Laplace block's 0.5; 0 for HMC), birth-death above 0."""
     for name in ("imp", "latent"):
         if f"accept_rate_{name}" in diag:
-            acc = diag[f"accept_rate_{name}"]
+            acc = np.asarray(diag[f"accept_rate_{name}"])
             require(bool(((acc > 0) & (acc <= 1)).all()), f"{what}: {name} accept rates {acc}")
-    require(bool((diag["accept_rate_glm"] > 0.5).all()), f"{what}: glm accept rates {diag['accept_rate_glm']}")
-    require(bool((diag["accept_rate_adjacency"] > 0).all()),
+    acc = np.asarray(diag["accept_rate_glm"])
+    require(bool(((acc > glm_floor) & (acc <= 1)).all()), f"{what}: glm accept rates {acc}")
+    require(bool((np.asarray(diag["accept_rate_adjacency"]) > 0).all()),
             f"{what}: birth-death accept rates {diag['accept_rate_adjacency']}")
 
 
@@ -518,23 +547,32 @@ def gibbs_phase(sl, card: str) -> dict:
     require(err_lj <= 1e-5, f"log-joint rel err {err_lj}")
     require(err_th <= 1e-4, f"Laplace theta* rel err {err_th}")
 
-    # times: the full sweep over 4 chains and one, then each stage alone
+    time_sweeps(pop, data, fit, states, card)
+    return launches
+
+
+def time_sweeps(pop, data, fit, states, card, label="", stages=SWEEP_STAGES, **sweep_kw) -> dict:
+    """The full sweep over all chains in turn and on one chain, then each of
+    ``stages`` alone on one chain: ms per sweep over 5 sweeps, the
+    synchronizing calls of one sweep, then (last) the device's activities
+    and busy ms of one sweep under torch.profiler. Returns {stage or None:
+    its synchronizing calls}."""
     n_rep = 5
-    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(GIBBS_CHAINS)]
-    full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit)
+    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(len(states))]
+    full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, **sweep_kw)
     sts = list(states)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_rep):
         sts = [full(g, s, False, 1.0) for g, s in zip(gens, sts)]
     torch.cuda.synchronize()
-    ms4 = 1e3 * (time.perf_counter() - t0) / n_rep
-    log(f"full sweep, {GIBBS_CHAINS} chains: {ms4:.2f} ms per sweep ({n_rep} sweeps) [{card}]")
+    ms_all = 1e3 * (time.perf_counter() - t0) / n_rep
+    log(f"{label}full sweep, {len(states)} chains: {ms_all:.2f} ms per sweep ({n_rep} sweeps) [{card}]")
     count_syncs(lambda: None)  # the debug mode's first switch synchronizes once itself
     sweeps = {None: full}
     sweeps.update({s: make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, stages=(s,),
-                                 diagnostic=True) for s in SWEEP_STAGES})
-    timed = {}
+                                 diagnostic=True, **sweep_kw) for s in stages})
+    timed, syncs_of = {}, {}
     for stage, sweep in sweeps.items():
         st = sweep(gens[0], states[0], False, 1.0)  # first use: lazy library set-up
         st, syncs = count_syncs(lambda: sweep(gens[0], st, False, 1.0))
@@ -543,17 +581,17 @@ def gibbs_phase(sl, card: str) -> dict:
         for _ in range(n_rep):
             st = sweep(gens[0], st, False, 1.0)
         torch.cuda.synchronize()
-        timed[stage] = (1e3 * (time.perf_counter() - t0) / n_rep, st)
-        log(f"{'full sweep' if stage is None else 'stage ' + stage}, one chain: {timed[stage][0]:.3f} ms per "
+        timed[stage], syncs_of[stage] = (1e3 * (time.perf_counter() - t0) / n_rep, st), syncs
+        log(f"{label}{'full sweep' if stage is None else 'stage ' + stage}, one chain: {timed[stage][0]:.3f} ms per "
             f"sweep ({n_rep} sweeps); {len(syncs)} synchronizing calls {sorted(set(syncs))} [{card}]")
     # profiled last: once the profiler has attached, host launches stay slower
     for stage, sweep in sweeps.items():
         ms, st = timed[stage]
         wall, busy, n_dev = device_busy_ms(lambda: sweep(gens[0], st, False, 1.0))
-        log(f"{'full sweep' if stage is None else 'stage ' + stage} under torch.profiler: {n_dev} device "
+        log(f"{label}{'full sweep' if stage is None else 'stage ' + stage} under torch.profiler: {n_dev} device "
             f"activities taking {busy:.3f} ms ({wall:.3f} ms wall profiled); against the unprofiled "
             f"{ms:.3f} ms the device idles {100 * (1 - busy / ms):.1f} % [{card}]")
-    return launches
+    return syncs_of
 
 
 # --- phase 6 ----------------------------------------------------------------
@@ -846,6 +884,343 @@ def acceptance_phase(dev, card) -> dict:
     return total
 
 
+# --- phase 7 ----------------------------------------------------------------
+
+
+ST_CHAINS, ST_WARMUP, ST_SAMPLES = 4, 40, 20
+SHARED_WARMUP, SHARED_SAMPLES = 40, 10
+GENERIC_WARMUP, GENERIC_SAMPLES = 5, 5
+HMC_WARMUP, HMC_SAMPLES, ARS_CHUNK = 40, 10, 10
+RESUME_CHAINS, RESUME_WARMUP, RESUME_SAMPLES, RESUME_EVERY = 2, 10, 20, 10
+
+
+def _simulated(pop, seed, T_, label, true=None):
+    """(true, S, stim): ``true`` or else a prior draw from a host generator,
+    a white (T, D_stim) stimulus, spikes simulated on the card."""
+    if true is None:
+        true = pop.sample(torch.Generator().manual_seed(seed))
+    stim = np.random.RandomState(seed + 1).randn(T_, pop.D_stim).astype(np.float32)
+    t0 = time.perf_counter()
+    S, rates = pop.simulate(torch.Generator(device=pop.device).manual_seed(seed), true, T_, stim=stim)
+    torch.cuda.synchronize()
+    mean_rate = float(rates.mean())
+    log(f"{label}: simulated N={pop.N}, T={T_}: {float(S.sum()):.0f} spikes, mean rate {mean_rate:.2f} Hz, "
+        f"in {time.perf_counter() - t0:.2f} s")
+    require(bool(torch.isfinite(rates).all()) and mean_rate < 1000.0, f"{label}: simulation, mean rate {mean_rate}")
+    return true, S, stim
+
+
+def _cpu64(pop, data, stim, params):
+    """The same population, data and params on the CPU in float64."""
+    cpu = Population(pop.spec, device="cpu", dtype=torch.float64)
+    data64 = cpu.prepare_data(data["S"].cpu().double(), stim=stim)
+    p64 = {k: v.detach().cpu().double() if v.is_floating_point() else v.cpu() for k, v in params.items()}
+    return cpu, data64, p64
+
+
+def _sampler_ms(label, t_run, chains, sweeps, card) -> str:
+    ms = 1e3 * t_run / sweeps
+    return (f"{label}: {chains} chain(s) x {sweeps} sweeps in {t_run:.2f} s: {ms:.1f} ms per {chains}-chain sweep, "
+            f"{ms / chains:.1f} ms per chain-sweep [{card}]")
+
+
+def variants_st(dev, card) -> dict:
+    """7a: spatiotemporal_glm at N=27, T=60,000, D_stim=25, stimulus and
+    impulse bases of 5: simulate, prepare_data, smart init, MAP, 4 chains of
+    the sweep with the bilinear glm block; launches, finiteness, accept
+    rates, card f32 vs CPU f64 of both sub-blocks' modes and the log-joint,
+    stage times with 0 synchronizing calls in the glm stage and the full
+    sweep. Returns (the path's launches, what 7e and 7f reuse)."""
+    spec = make_model("spatiotemporal_glm", N)
+    pop = CountingPopulation(spec, device=dev)
+    true, S, stim = _simulated(pop, SEED + 70, T, "7a spatiotemporal_glm")
+    data = pop.prepare_data(S, stim=stim)
+    require(tuple(data["X_st"].shape) == (T, 25, 5), f"7a: X_st {tuple(data['X_st'].shape)}")
+    init = smart_initialize(pop, data, torch.Generator().manual_seed(SEED))
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    fit, lp, iters = map_fit(pop, data, init)
+    torch.cuda.synchronize()
+    path, ll_evals = _since(pop, before)
+    log(f"7a MAP: log-joint {float(lp):.3f} after {iters} iterations in {time.perf_counter() - t0:.2f} s; "
+        f"launches {path}, likelihood evaluations {ll_evals}")
+    require(math.isfinite(float(lp)), "7a: non-finite MAP")
+    _require_all_fused("7a MAP", path, ll_evals)
+
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    samples, diag, states = gibbs_sample_chains(
+        pop, data, SEED, n_chains=ST_CHAINS, n_samples=ST_SAMPLES, n_warmup=ST_WARMUP, chunk_size=ST_SAMPLES,
+        init_params=fit, init_jitter=0.05,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    sweeps = ST_WARMUP + ST_SAMPLES
+    log(_sampler_ms("7a sampler", t_run, ST_CHAINS, sweeps, card) + f"; launches {launches}; accept glm "
+        f"{diag['accept_rate_glm']}, imp {diag['accept_rate_imp']}")
+    _require_sweep_launches("7a sampler", launches, ll_evals, ST_CHAINS, sweeps)
+    _require_chains("7a sampler", states, samples)
+    _require_accept_rates("7a sampler", diag)
+    path = _add(path, launches)
+
+    p0 = states[0]["params"]
+    cpu, data64, p64 = _cpu64(pop, data, stim, p0)
+    theta0 = _glm_theta0(pop, data, fit, "spatiotemporal")
+    with torch.no_grad():
+        fits32 = gibbs.glm_laplace_fit_st(pop, p0, data, theta0)
+        fits64 = gibbs.glm_laplace_fit_st(cpu, p64, data64, {k: v.cpu().double() for k, v in theta0.items()})
+        lj32, lj64 = float(pop.log_joint(p0, data)), float(cpu.log_joint(p64, data64))
+    errs = [rel_l2(a[0], b[0]) for a, b in zip(fits32, fits64)]
+    err_lj = abs(lj32 - lj64) / abs(lj64)
+    log(f"7a card f32 vs CPU f64 on chain 0's final state: Laplace theta* rel-L2 (a) [bias, w_s] {errs[0]:.3e}, "
+        f"(b) w_t {errs[1]:.3e}; log-joint rel {err_lj:.3e} ({lj32:.3f} vs {lj64:.3f})")
+    require(max(errs) <= 1e-4, f"7a: Laplace theta* rel err {errs}")
+    require(err_lj <= 1e-5, f"7a: log-joint rel err {err_lj}")
+    syncs = time_sweeps(pop, data, fit, states, card, label="7a ", stages=("glm", "imp"))
+    require(not syncs["glm"] and not syncs[None], f"7a: synchronizing calls {syncs}")
+    return path, {"pop": pop, "data": data, "fit": fit, "true": true, "samples": samples}
+
+
+def variants_shared(dev, card) -> dict:
+    """7b: standard_glm at N=27, T=60,000 with its stimulus section's type
+    set to 'shared' (DB=5): 1 chain; launches, 0 synchronizing calls in the
+    glm stage, card vs CPU of both sub-blocks' modes."""
+    spec = make_model("standard_glm", N)
+    spec["bkgd"]["type"] = "shared"
+    pop = CountingPopulation(spec, device=dev)
+    true, S, stim = _simulated(pop, SEED + 71, T, "7b shared stimulus")
+    data = pop.prepare_data(S, stim=stim)
+    require(tuple(data["X_stim"].shape) == (T, 5), f"7b: X_stim {tuple(data['X_stim'].shape)}")
+    init = smart_initialize(pop, data, torch.Generator().manual_seed(SEED))
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    samples, diag, state = gibbs_sample(
+        pop, data, torch.Generator(device=dev).manual_seed(SEED + 71), n_samples=SHARED_SAMPLES,
+        n_warmup=SHARED_WARMUP, chunk_size=SHARED_SAMPLES, init_params=init,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    path, ll_evals = _since(pop, before)
+    sweeps = SHARED_WARMUP + SHARED_SAMPLES
+    log(_sampler_ms("7b sampler", t_run, 1, sweeps, card) + f"; launches {path}; accept glm "
+        f"{diag['accept_rate_glm']:.3f}, imp {diag['accept_rate_imp']:.3f}")
+    _require_sweep_launches("7b sampler", path, ll_evals, 1, sweeps)
+    _require_chains("7b sampler", [state], samples)
+    _require_accept_rates("7b sampler", diag)
+
+    p0 = state["params"]
+    cpu, data64, p64 = _cpu64(pop, data, stim, p0)
+    theta0 = _glm_theta0(pop, data, init, "shared")
+    with torch.no_grad():
+        fits32 = gibbs.glm_laplace_fit_shared(pop, p0, data, theta0)
+        fits64 = gibbs.glm_laplace_fit_shared(cpu, p64, data64, {k: v.cpu().double() for k, v in theta0.items()})
+    errs = [rel_l2(a[0], b[0]) for a, b in zip(fits32, fits64)]
+    log(f"7b card f32 vs CPU f64 on the final state: Laplace theta* rel-L2 (a) [bias, gain] {errs[0]:.3e}, "
+        f"(b) w_stim_shared {errs[1]:.3e}")
+    require(max(errs) <= 1e-4, f"7b: Laplace theta* rel err {errs}")
+    syncs = time_sweeps(pop, data, init, [state], card, label="7b ", stages=("glm",))
+    require(not syncs["glm"], f"7b: synchronizing calls in the glm stage {syncs['glm']}")
+    return (path,)
+
+
+def variants_generic(dev, card) -> dict:
+    """7c: sparse_weighted_model at config 3's shape (N=10, T=30,000, its
+    planted weights) with softplus, then with Bernoulli observations: the
+    autograd branches, no fused kernel; card vs CPU of _bin_ll_derivs."""
+    total = {"fwd": 0, "vg": 0}
+    for what, override in (("softplus", {"nlin": {"type": "softplus"}}),
+                           ("bernoulli", {"observation": {"type": "bernoulli"}})):
+        T3, N3 = ACCEPT_SHAPES[3]
+        spec = make_model("sparse_weighted_model", N3, **override)
+        spec["bias"] = {"mu": 2.5, "sigma": 0.4}
+        t0 = time.perf_counter()
+        pop, true, S, stim = acceptance._simulate(CountingPopulation(spec, device=dev), T3, 2,
+                                                  acceptance._planted_er_weights(30))
+        torch.cuda.synchronize()
+        log(f"7c {what}: simulated N={N3}, T={T3}: {float(S.sum()):.0f} spikes in {time.perf_counter() - t0:.2f} s")
+        data = pop.prepare_data(S, stim=stim)
+        init = smart_initialize(pop, data)
+        before = _counted(pop)
+        t0 = time.perf_counter()
+        samples, diag, state = gibbs_sample(
+            pop, data, torch.Generator(device=dev).manual_seed(SEED + 72), n_samples=GENERIC_SAMPLES,
+            n_warmup=GENERIC_WARMUP, chunk_size=GENERIC_SAMPLES, init_params=init,
+        )
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches, ll_evals = _since(pop, before)
+        log(_sampler_ms(f"7c {what} sampler", t_run, 1, GENERIC_WARMUP + GENERIC_SAMPLES, card)
+            + f"; launches {launches}; accept glm {diag['accept_rate_glm']:.3f}, imp {diag['accept_rate_imp']:.3f}, "
+            f"adjacency {diag['accept_rate_adjacency']:.3f}")
+        require(launches == {"fwd": 0, "vg": 0}, f"7c {what}: the fused op launched {launches}")
+        _require_chains(f"7c {what}", [state], samples)
+        p0 = state["params"]
+        cpu, data64, p64 = _cpu64(pop, data, stim, p0)
+        with torch.no_grad():
+            I32, I64 = pop.total_current(p0, data), cpu.total_current(p64, data64)
+        d32 = gibbs._bin_ll_derivs(data["S"], I32, pop.observation, pop.nlin, pop.dt)
+        d64 = gibbs._bin_ll_derivs(data64["S"], I64, cpu.observation, cpu.nlin, cpu.dt)
+        errs = [rel_l2(a, b) for a, b in zip(d32, d64)]
+        log(f"7c {what}, card f32 vs CPU f64 _bin_ll_derivs at the final state: d1 rel-L2 {errs[0]:.3e}, "
+            f"d2 {errs[1]:.3e}")
+        require(max(errs) <= 1e-4, f"7c {what}: derivative rel err {errs}")
+        total = _add(total, launches)
+    return (total,)
+
+
+def variants_hmc_ars(sl, card) -> dict:
+    """7d: the flagship's population, data and MAP fit, 1 chain with
+    glm_update='hmc', then with bias_update='ars': launches, accept rates,
+    one host round trip per ARS pass, card vs CPU of the whitening factor."""
+    pop, data, fit = sl["pop"], sl["data"], sl["params"]
+    src = open(ars.__file__).read().splitlines()
+    where = os.path.relpath(ars.__file__, REPO)
+    to_host = f"{where}:{next(i + 1 for i, l in enumerate(src) if '.cpu()' in l)}"
+    to_card = f"{where}:{next(i + 1 for i, l in enumerate(src) if 'torch.as_tensor(new_bias' in l)}"
+    passes = []
+    update = ars.update_bias_ars
+
+    def counted(rng, pop_, params, data_):
+        out, syncs = count_syncs(lambda: update(rng, pop_, params, data_))
+        passes.append(syncs)
+        return out
+
+    path = {"fwd": 0, "vg": 0}
+    sweeps = HMC_WARMUP + HMC_SAMPLES
+    for what, kw in (("glm_update='hmc'", {"glm_update": "hmc"}), ("bias_update='ars'", {"bias_update": "ars"})):
+        before = _counted(pop)
+        ars.update_bias_ars = counted
+        t0 = time.perf_counter()
+        try:
+            samples, diag, state = gibbs_sample(
+                pop, data, torch.Generator(device=pop.device).manual_seed(SEED + 73), n_samples=HMC_SAMPLES,
+                n_warmup=HMC_WARMUP, chunk_size=ARS_CHUNK, init_params=fit, **kw,
+            )
+            torch.cuda.synchronize()
+        finally:
+            ars.update_bias_ars = update
+        t_run = time.perf_counter() - t0
+        launches, ll_evals = _since(pop, before)
+        log(_sampler_ms(f"7d {what}", t_run, 1, sweeps, card) + f"; launches {launches}; accept "
+            + ", ".join(f"{k[12:]} {v:.3f}" for k, v in diag.items() if k.startswith("accept_rate")))
+        _require_sweep_launches(f"7d {what}", launches, ll_evals, 1, sweeps)
+        _require_chains(f"7d {what}", [state], samples)
+        _require_accept_rates(f"7d {what}", diag, glm_floor=0.0)
+        path = _add(path, launches)
+    n_pass = sweeps // ARS_CHUNK
+    log(f"7d ARS: {len(passes)} passes, synchronizing calls of each {passes} (one to the host at {to_host}; "
+        f"the copy back at {to_card})")
+    require(len(passes) == n_pass, f"7d: {len(passes)} ARS passes, want one per chunk: {n_pass}")
+    for syncs in passes:
+        require(syncs.count(to_host) == 1 and set(syncs) <= {to_host, to_card} and syncs.count(to_card) <= 1,
+                f"7d: an ARS pass is not one host round trip: {syncs}")
+
+    R32 = whitening_factor(data["X_stim"])
+    R64 = whitening_factor(_cpu64(pop, data, sl["stim"], fit)[1]["X_stim"])
+    err = rel_l2(R32, R64)
+    log(f"7d whitening factor R, card f32 vs CPU f64: rel-L2 {err:.3e}")
+    require(err <= 1e-5, f"7d: whitening factor rel err {err}")
+    return (path,)
+
+
+def variants_predictive(st, card) -> dict:
+    """7e: the predictive log-likelihood of 7a's draws on the last 20 % of
+    a fresh simulation of 7a's generating parameters: one K1 launch per
+    draw, finite, above a prior draw's."""
+    pop, true = st["pop"], st["true"]
+    _, S, stim = _simulated(pop, SEED + 74, T, "7e fresh simulation", true=true)
+    T_tr = int(0.8 * T)
+    data_ho = pop.prepare_data(S[T_tr:], stim=stim[T_tr:])
+    draws = {k: v.reshape((-1,) + v.shape[2:]) for k, v in st["samples"].items()}
+    K = len(draws["bias"])
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    pll = float(predictive_log_likelihood(pop, draws, data_ho))
+    t_pll = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    with torch.no_grad():
+        prior = float(pop.log_likelihood(pop.sample(torch.Generator().manual_seed(SEED + 75)), data_ho))
+        at_truth = float(pop.log_likelihood(true, data_ho))
+    log(f"7e predictive log-likelihood of {K} draws on {T - T_tr} held-out bins: {pll:.3f} in {t_pll:.3f} s "
+        f"(a prior draw {prior:.3f}, the truth {at_truth:.3f}); launches {launches} [{card}]")
+    require(launches == {"fwd": K, "vg": 0} and ll_evals == {"grad": 0, "value": K},
+            f"7e: launches {launches}, evaluations {ll_evals}, want one K1 per draw ({K})")
+    require(math.isfinite(pll) and pll > prior, f"7e: predictive {pll} not above a prior draw's {prior}")
+    return (launches,)
+
+
+def _tensor_leaves(a, b, where="states"):
+    """(path, a's tensor, b's tensor) for every tensor leaf of two nestings
+    of dicts, lists and tuples (HMCState records) of the same structure."""
+    if isinstance(a, torch.Tensor):
+        yield where, a, b
+    elif isinstance(a, dict):
+        for k in a:
+            yield from _tensor_leaves(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _tensor_leaves(x, y, f"{where}[{i}]")
+
+
+def variants_resume(st, card) -> dict:
+    """7f: 7a's model, 2 chains x 30 sweeps checkpointed every 10: an
+    uninterrupted run, then one stopped at sweep 20 and resumed to 30; the
+    kept draws and final states equal to the last bit."""
+    pop, data, fit = st["pop"], st["data"], st["fit"]
+    kw = dict(n_chains=RESUME_CHAINS, n_warmup=RESUME_WARMUP, chunk_size=RESUME_EVERY, init_params=fit,
+              init_jitter=0.05)
+    before = _counted(pop)
+    t0 = time.perf_counter()
+    full = gibbs_sample_chains(pop, data, SEED + 76, n_samples=RESUME_SAMPLES, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        gibbs_sample_chains(pop, data, SEED + 76, n_samples=RESUME_SAMPLES - RESUME_EVERY, checkpoint_dir=d,
+                            checkpoint_every=RESUME_EVERY, **kw)
+        calls = []
+        resumed = gibbs_sample_chains(pop, data, SEED + 76, n_samples=RESUME_SAMPLES, checkpoint_dir=d,
+                                      checkpoint_every=RESUME_EVERY, resume=True,
+                                      callback=lambda ph, it, s: calls.append((ph, it)), **kw)
+        files = sorted(os.listdir(d))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches, ll_evals = _since(pop, before)
+    sweeps = 2 * (RESUME_WARMUP + RESUME_SAMPLES)  # the full run, then 20 + 10
+    require(calls == [("sample", RESUME_SAMPLES)], f"7f: the resumed run's chunks {calls}")
+    _require_sweep_launches("7f", launches, ll_evals, RESUME_CHAINS, sweeps)
+    differ = [k for k in full[0] if not np.array_equal(full[0][k], resumed[0][k])]
+    differ += [where for where, a, b in _tensor_leaves(full[2], resumed[2]) if not torch.equal(a, b)]
+    log(f"7f exact resume, {RESUME_CHAINS} chains x {RESUME_WARMUP + RESUME_SAMPLES} sweeps, checkpoint every "
+        f"{RESUME_EVERY}: uninterrupted, stopped at {RESUME_WARMUP + RESUME_SAMPLES - RESUME_EVERY} and resumed in "
+        f"{t_run:.2f} s; files {files}; launches {launches}; leaves that differ: {differ or 'none'} [{card}]")
+    require(not differ, f"7f: resumed run differs from the uninterrupted one in {differ}")
+    return (launches,)
+
+
+def _path(label, run) -> tuple:
+    """One path of phase 7, with the launch counts set to 0 just before it:
+    returns what ``run`` returns, (the path's launches, ...)."""
+    kernels.LAUNCHES.update(fwd=0, vg=0)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    log(f"{label}: done in {time.perf_counter() - t0:.2f} s; launches on its path {out[0]}")
+    return out
+
+
+def variants_phase(dev, card, sl) -> dict:
+    """Phase 7. Returns the launches of its paths summed (7c launches none)."""
+    t0 = time.perf_counter()
+    total, st = _path("7a", lambda: variants_st(dev, card))
+    for label, run in (("7b", lambda: variants_shared(dev, card)), ("7c", lambda: variants_generic(dev, card)),
+                       ("7d", lambda: variants_hmc_ars(sl, card))):
+        total = _add(total, _path(label, run)[0])
+    # the held-out segment is the phase's one new kernel shape
+    check_kernels(dev, T - int(0.8 * T), N, "7e held-out", card)
+    for label, run in (("7e", lambda: variants_predictive(st, card)), ("7f", lambda: variants_resume(st, card))):
+        total = _add(total, _path(label, run)[0])
+    log(f"phase 7: {time.perf_counter() - t0:.2f} s")
+    return total
+
 def main() -> None:
     card = setup()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -869,6 +1244,9 @@ def main() -> None:
 
     accept_launches = acceptance_phase(dev, card)
     launches = {k: launches[k] + accept_launches[k] for k in launches}
+
+    variant_launches = variants_phase(dev, card, sl)
+    launches = {k: launches[k] + variant_launches[k] for k in launches}
 
     src = os.path.relpath(SOURCE, REPO)
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",

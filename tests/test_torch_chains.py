@@ -175,10 +175,11 @@ def test_gibbs_sample_chains_small_run():
         np.testing.assert_array_equal(samples[k], again[k])
 
 
-def test_init_jitter_and_unported_options():
+def test_init_jitter_and_unported_options(tmp_path):
     """With no sweeps the returned states are the chains' starting points:
     the MAP-like init plus init_jitter·N(0,1) on the continuous leaves (the
-    locations twice, as in JAX), A untouched. mesh and checkpoints raise."""
+    locations twice, as in JAX), A untouched. mesh raises; checkpoints and
+    resume, which raised until they were ported, run."""
     pop_t, p_t, d_t = (build_pair_light(tpu.make_model("distance_weighted_model", 5), T=100)[i] for i in (1, 3, 5))
     _, diag, states = gibbs_sample_chains(pop_t, d_t, 1, n_chains=4, n_samples=0, n_warmup=0,
                                           init_params=p_t, init_jitter=0.05)
@@ -189,10 +190,13 @@ def test_init_jitter_and_unported_options():
     assert abs(pooled.std() - 0.05) < 0.005
     assert abs(dev["locs"].std() - 0.05 * math.sqrt(2.0)) < 0.02
     assert "accept_rate_adjacency" not in diag
-    for kw, match in (({"mesh": object()}, "item 14"), ({"checkpoint_dir": "/nonexistent"}, "item 8"),
-                      ({"resume": True}, "item 8")):
-        with pytest.raises(NotImplementedError, match=match):
-            gibbs_sample_chains(pop_t, d_t, 1, n_chains=2, n_samples=1, n_warmup=0, **kw)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        gibbs_sample_chains(pop_t, d_t, 1, n_chains=2, n_samples=1, n_warmup=0, mesh=object())
+    ck = str(tmp_path / "ck")
+    for kw in ({"checkpoint_dir": ck}, {"resume": True}):
+        samples, _, _ = gibbs_sample_chains(pop_t, d_t, 1, n_chains=2, n_samples=1, n_warmup=0, n_leapfrog=2, **kw)
+        assert samples["W"].shape == (1, 2, 5, 5), kw
+    assert sorted(os.listdir(ck)) == ["ckpt_000000001.pt", "samples_000000001.npz"]
 
 
 def test_link_prediction_auc_is_the_rank_statistic():

@@ -90,12 +90,19 @@ def test_bin_ll_derivs_match_jax_with_clipped_entries():
 
 
 def test_non_exp_poisson_paths_raise():
-    """The autodiff branches wait for queue 1 item 10."""
-    pop_t, p_t, d_t = (_pair("sparse_weighted_model", 3, T=60, nlin={"type": "softplus"})[i] for i in (1, 3, 5))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        gibbs_t._bin_ll_derivs(d_t["S"], d_t["S"], pop_t.observation, pop_t.nlin, pop_t.dt)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        gibbs_t.update_adjacency_collapsed(torch.Generator().manual_seed(0), pop_t, p_t, d_t)
+    """The autodiff branches, which raised until they were ported, now run:
+    softplus per-bin derivatives equal JAX's (tests/test_torch_generic.py
+    holds them and the birth–death law in full), and the generic birth–death
+    update keeps A binary and W finite."""
+    pop_j, pop_t, p_j, p_t, d_j, d_t = _pair("sparse_weighted_model", 3, T=60, nlin={"type": "softplus"})
+    d1, d2 = gibbs_t._bin_ll_derivs(d_t["S"], d_t["S"], pop_t.observation, pop_t.nlin, pop_t.dt)
+    want = gibbs_j._bin_ll_derivs(d_j["S"], d_j["S"], pop_j.observation, pop_j.nlin, pop_j.dt)
+    for got, w in zip((d1, d2), want):
+        np.testing.assert_allclose(to_np(got), np.asarray(w), rtol=1e-6, atol=1e-12)
+    out, acc = gibbs_t.update_adjacency_collapsed(torch.Generator().manual_seed(0), pop_t, p_t, d_t,
+                                                  return_accept=True)
+    assert bool(((out["A"] == 0) | (out["A"] == 1)).all()) and bool(torch.isfinite(out["W"]).all())
+    assert 0.0 <= float(acc) <= 1.0
 
 
 @pytest.mark.parametrize("name", ["distance_weighted_model", "standard_glm"])

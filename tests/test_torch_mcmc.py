@@ -10,6 +10,7 @@ within a stated Monte Carlo tolerance.
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -168,11 +169,13 @@ def test_make_sweep_refuses_a_partial_sweep():
         with pytest.raises(ValueError, match="unknown glm_update"):
             mod.make_sweep(pop, d, glm_update="bogus")
     make_sweep(pop_t, d_t, stages=SWEEP_STAGES)  # the full set needs no acknowledgment
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_sweep(pop_t, d_t, glm_update="hmc")
-    pop_s, d_s = (_pair("spatiotemporal_glm", 2, T=60)[i] for i in (1, 5))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_sweep(pop_s, d_s)
+    # the whitened glm HMC and the spatiotemporal glm block, which raised
+    # until they were ported, build sweeps that run
+    st = make_sweep(pop_t, d_t, glm_update="hmc")(torch.Generator().manual_seed(0), init_mcmc_state(pop_t, p_t), True)
+    assert 0.0 <= float(st["glm"].accept_rate) <= 1.0
+    pop_s, p_s, d_s = (_pair("spatiotemporal_glm", 2, T=60)[i] for i in (1, 3, 5))
+    st = make_sweep(pop_s, d_s)(torch.Generator().manual_seed(0), init_mcmc_state(pop_s, p_s), True)
+    assert all(bool(torch.isfinite(v).all()) for v in st["params"].values())
 
 
 def test_diagnostic_stage_subset_passes_state_through():
@@ -232,17 +235,20 @@ def test_gibbs_sample_small_run():
         np.testing.assert_array_equal(to_np(v), samples[k][-1])
 
 
-def test_gibbs_sample_raises_for_unported_options():
+def test_gibbs_sample_raises_for_unported_options(tmp_path):
+    """An unknown bias update still raises. Checkpoints, resume and the ARS
+    bias update raised until they were ported; now they run (the checkpoint
+    lands in the directory; resume without a checkpoint starts afresh)."""
     pop_t, p_t, d_t = (_pair("distance_weighted_model", 3, T=60)[i] for i in (1, 3, 5))
     g = torch.Generator().manual_seed(0)
-    for kw, err, match in (
-        ({"checkpoint_dir": "/nonexistent"}, NotImplementedError, "item 8"),
-        ({"resume": True}, NotImplementedError, "item 8"),
-        ({"bias_update": "ars"}, NotImplementedError, "item 10"),
-        ({"bias_update": "bogus"}, ValueError, "bias_update"),
-    ):
-        with pytest.raises(err, match=match):
-            gibbs_sample(pop_t, d_t, g, n_samples=1, n_warmup=0, init_params=p_t, **kw)
+    with pytest.raises(ValueError, match="bias_update"):
+        gibbs_sample(pop_t, d_t, g, n_samples=1, n_warmup=0, init_params=p_t, bias_update="bogus")
+    ck = str(tmp_path / "ck")
+    for kw in ({"checkpoint_dir": ck}, {"resume": True}, {"checkpoint_dir": ck, "resume": True},
+               {"bias_update": "ars"}):
+        samples, _, _ = gibbs_sample(pop_t, d_t, g, n_samples=1, n_warmup=0, init_params=p_t, n_leapfrog=2, **kw)
+        assert samples["bias"].shape == (1, 3) and np.isfinite(samples["bias"]).all(), kw
+    assert sorted(os.listdir(ck)) == ["ckpt_000000001.pt", "samples_000000001.npz"]
 
 
 def test_edge_probabilities_match_jax_on_jax_spikes():

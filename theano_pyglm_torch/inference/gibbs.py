@@ -18,10 +18,16 @@ The SBM type stage is a loop over neurons in the same way: each neuron's
 class is drawn by Gumbel-max from noise drawn up front, and written back
 with ``torch.where``, so no draw reads back to the host.
 
-Only the exp-Poisson closed forms are ported. The generic (autodiff)
-branches of ``_bin_ll_derivs`` and of the birth–death Newton fit raise
-:class:`NotImplementedError` (ROADMAP.md, queue 1 item 10). The bf16 design
-branch of ψ waits for the bf16 designs (queue 2, K4).
+The exp-Poisson model takes closed forms (per-bin derivatives, the
+birth–death ΔLL on a time subsample). Every other (observation,
+nonlinearity) pair takes the generic branches, with derivatives by
+autograd: ``_bin_ll_derivs`` differentiates the per-bin log-likelihood
+twice, and the birth–death Newton fit differentiates the exact full-T ΔLL
+of the entry twice. The glm block has one Laplace-MH update per stimulus
+variant: ``update_glm_laplace`` (none, basis), ``update_glm_laplace_st``
+(spatiotemporal: two bilinear sub-blocks) and ``update_glm_laplace_shared``
+(shared: per-neuron [bias, gain], then the global filter). The bf16 design
+branch of ψ waits for the bf16 designs (ROADMAP.md, queue 2, K4).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import math
 
 import torch
 
+from theano_pyglm_torch.models.components import GAIN_PRIOR_MU, GAIN_PRIOR_SD
 from theano_pyglm_torch.ops.clipping import clip_exponent, exp_clipped, exponent_active
 from theano_pyglm_torch.ops.distributions import (
     sample_beta,
@@ -46,10 +53,6 @@ SUBSAMPLE_BLK = 2048  # contiguous bins per block
 
 _LOG2PI = 1.8378770664093453
 _HALF_LOG2PI = 0.9189385332046727
-_GENERIC = (
-    "only the exp-Poisson closed form is ported; other observation/nonlinearity "
-    "pairs are not ported yet (ROADMAP.md, queue 1 item 10)"
-)
 
 __all__ = [
     "compute_psi",
@@ -57,7 +60,11 @@ __all__ = [
     "update_adjacency",
     "update_adjacency_collapsed",
     "glm_laplace_fit",
+    "glm_laplace_fit_st",
+    "glm_laplace_fit_shared",
     "update_glm_laplace",
+    "update_glm_laplace_st",
+    "update_glm_laplace_shared",
     "refresh_disconnected_weights",
     "update_weight_hypers",
     "update_sbm_types_collapsed",
@@ -178,6 +185,17 @@ def update_adjacency(generator, pop, params, data, row_batch=None, beta=1.0):
     return {**params, "A": A_new}
 
 
+def _grad_and_curvature(fn, x):
+    """(d/dx, d²/dx²) of ``fn`` at x, elementwise, by autograd twice: each
+    element of fn(x) depends on the same element of x alone, so the gradient
+    of the sum is the elementwise derivative."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        (d1,) = torch.autograd.grad(fn(x).sum(), x, create_graph=True)
+        (d2,) = torch.autograd.grad(d1.sum(), x)
+    return d1.detach(), d2
+
+
 def update_adjacency_collapsed(
     generator, pop, params, data, n_newton: int = 8, return_accept: bool = False,
     row_batch=None, beta=1.0,
@@ -190,11 +208,13 @@ def update_adjacency_collapsed(
     0.8·N(w*, s²) + 0.2·prior, and an exact independence-MH step on the
     full-T likelihood accepts or rejects the pair.
 
-    Proposal shaping (Newton, evidence) runs on a time subsample of at most
-    ``SUBSAMPLE_T`` bins: ``SUBSAMPLE_T // SUBSAMPLE_BLK`` contiguous blocks
-    at random offsets drawn once per call, gathered as one index. Only the
-    exp-Poisson closed form is ported. Returns the new params, and with
-    ``return_accept`` also the mean acceptance over all N² entries.
+    The exp-Poisson model shapes its proposal (Newton, evidence) by closed
+    forms on a time subsample of at most ``SUBSAMPLE_T`` bins:
+    ``SUBSAMPLE_T // SUBSAMPLE_BLK`` contiguous blocks at random offsets
+    drawn once per call, gathered as one index. Every other model uses the
+    exact ΔLL over the full T, with Newton's derivatives by autograd. Returns
+    the new params, and with ``return_accept`` also the mean acceptance over
+    all N² entries.
     """
     f, dev = pop.dtype, pop.device
     if pop.graph.fixed_A:
@@ -204,20 +224,19 @@ def update_adjacency_collapsed(
         out = update_adjacency(generator, pop, params, data, row_batch=row_batch, beta=beta)
         one = torch.ones((), dtype=f, device=dev)
         return (out, one) if return_accept else out
-    if not (pop.nlin.name == "exp" and pop.observation.name == "poisson"):
-        raise NotImplementedError(f"update_adjacency_collapsed: {_GENERIC}")
 
-    S, dt = data["S"], pop.dt
+    S, dt, nlin, obs = data["S"], pop.dt, pop.nlin, pop.observation
     N = pop.N
     w_eff_all = pop.impulse.effective(params)  # (N_post, N_pre, B)
     I_rest = rest_current(pop, params, data)
     MU, SIG = pop.weights.prior_mu_sigma(params)
     logit_prior = _logit_prior(pop.graph.edge_prob(params))
     mean = data.get("_X_imp_mean")
+    fast = nlin.name == "exp" and obs.name == "poisson"
 
     T_full = int(S.shape[0])
     T_sub = min(T_full, SUBSAMPLE_T)
-    use_sub = T_sub < T_full
+    use_sub = fast and T_sub < T_full
     if use_sub:
         if "X_imp" not in data:
             _row_psi(pop, data, w_eff_all[0])  # raises the designed message
@@ -240,15 +259,16 @@ def update_adjacency_collapsed(
                    S_sub_n, I_rest_sub_n, ua_n, umix_n, uacc_n, z_n):
         psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T)
         I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n, A_n * W_n)
-        if use_sub:
-            psi_sub = _psi_from_X(X_sub, mean, w_eff_n)
-            I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub, A_n * W_n)
-        else:
-            psi_sub, S_sub_n = psi_n, S_n
-        a_sub_all = torch.einsum("rt,mrt->rm", S_sub_n, psi_sub) * scale_sub  # Σ S·ψ
-        # the carried current's likelihood scalars Σ S·clip(I_n), Σ e^{clip(I_n)}
-        I_c = clip_exponent(I_n)
-        sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
+        if fast:
+            if use_sub:
+                psi_sub = _psi_from_X(X_sub, mean, w_eff_n)
+                I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub, A_n * W_n)
+            else:
+                psi_sub, S_sub_n = psi_n, S_n
+            a_sub_all = torch.einsum("rt,mrt->rm", S_sub_n, psi_sub) * scale_sub  # Σ S·ψ
+            # the carried current's likelihood scalars Σ S·clip(I_n), Σ e^{clip(I_n)}
+            I_c = clip_exponent(I_n)
+            sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
         A_cols, W_cols, acc_cols = [], [], []
         for m in range(N):
             a_cur, w_cur = A_n[:, m], W_n[:, m]
@@ -257,21 +277,42 @@ def update_adjacency_collapsed(
             I_wo = I_n - g_cur * psi_m
             mu, sig, logit = mu_n[:, m], sig_n[:, m], logit_n[:, m]
             prec = 1.0 / (sig * sig)
-            if use_sub:
-                psi_s = psi_sub[m]
-                I_s = I_sub - g_cur * psi_s
+            if fast:
+                if use_sub:
+                    psi_s = psi_sub[m]
+                    I_s = I_sub - g_cur * psi_s
+                else:
+                    psi_s, I_s = psi_m, I_wo
+                a_sub = a_sub_all[:, m]
+                I0s_c = clip_exponent(I_s)
+                sum_E0s = torch.exp(I0s_c).sum(-1)
+                sum_S_I0s = (S_sub_n * I0s_c).sum(-1)
+
+                def dll_grad_hess(w):
+                    # subsampled ΔLL derivatives, by the closed form
+                    up = exp_clipped(I_s + w[:, None] * psi_s) * psi_s
+                    return beta * (a_sub - dt * scale_sub * up.sum(-1)), beta * (-dt * scale_sub * (up * psi_s).sum(-1))
+
+                def dll_star_of(w):
+                    I1 = clip_exponent(I_s + w[:, None] * psi_s)
+                    return beta * scale_sub * (
+                        ((S_sub_n * I1).sum(-1) - sum_S_I0s) - dt * (torch.exp(I1).sum(-1) - sum_E0s)
+                    )
             else:
-                psi_s, I_s = psi_m, I_wo
-            a_sub = a_sub_all[:, m]
-            I0s_c = clip_exponent(I_s)
-            sum_E0s = torch.exp(I0s_c).sum(-1)
-            sum_S_I0s = (S_sub_n * I0s_c).sum(-1)
+                ll_wo = obs.log_likelihood(S_n, I_wo, nlin, dt).sum(-1)
+
+                def dll_fit(w, I_wo=I_wo, psi_m=psi_m, ll_wo=ll_wo):
+                    # the exact full-T ΔLL of the edge at weight w
+                    return beta * (obs.log_likelihood(S_n, I_wo + w[:, None] * psi_m, nlin, dt).sum(-1) - ll_wo)
+
+                def dll_grad_hess(w):
+                    return _grad_and_curvature(dll_fit, w)
+
+                dll_star_of = dll_fit
 
             def g_grad_hess(w):
-                # subsampled ΔLL derivatives plus the Gaussian prior's
-                up = exp_clipped(I_s + w[:, None] * psi_s) * psi_s
-                d1 = beta * (a_sub - dt * scale_sub * up.sum(-1))
-                d2 = beta * (-dt * scale_sub * (up * psi_s).sum(-1))
+                # ΔLL derivatives plus the Gaussian prior's
+                d1, d2 = dll_grad_hess(w)
                 return d1 - (w - mu) * prec, d2 - prec
 
             # Newton from the prior mean: a state-independent seed, so the
@@ -284,12 +325,8 @@ def update_adjacency_collapsed(
             h_star = torch.minimum(g_grad_hess(w_star)[1], -0.1 * prec)
             s = torch.sqrt(-1.0 / h_star)
 
-            I1 = clip_exponent(I_s + w_star[:, None] * psi_s)
-            dll_star = beta * scale_sub * (
-                ((S_sub_n * I1).sum(-1) - sum_S_I0s) - dt * (torch.exp(I1).sum(-1) - sum_E0s)
-            )
             zs = (w_star - mu) / sig
-            log_z1 = dll_star - 0.5 * (zs * zs + _LOG2PI) - torch.log(sig) + 0.5 * _LOG2PI + torch.log(s)
+            log_z1 = dll_star_of(w_star) - 0.5 * (zs * zs + _LOG2PI) - torch.log(sig) + 0.5 * _LOG2PI + torch.log(s)
             p_birth = torch.sigmoid(torch.clamp(logit + log_z1, -3.5, 3.5))
 
             a_prop = (ua_n[:, m] < p_birth).to(f)
@@ -297,14 +334,17 @@ def update_adjacency_collapsed(
             w_birth = torch.where(umix_n[:, m] < 0.8, w_star + s * z_n[:, m], w_prior)
             w_prop = torch.where(a_prop > 0, w_birth, w_prior)
 
-            # exact full-T ΔLL at the proposal; the current state's is free
-            # from the carried scalars (multiplied by a=0 when A[n,m]=0)
-            I_wo_c = clip_exponent(I_wo)
-            I1p_c = clip_exponent(I_wo + w_prop[:, None] * psi_m)
-            sum_S_Iwo = (S_n * I_wo_c).sum(-1)
-            sum_E_wo = torch.exp(I_wo_c).sum(-1)
-            dll_prop = beta * (((S_n * I1p_c).sum(-1) - sum_S_Iwo) - dt * (torch.exp(I1p_c).sum(-1) - sum_E_wo))
-            dll_cur = beta * ((sS - sum_S_Iwo) - dt * (sE - sum_E_wo))
+            if fast:
+                # exact full-T ΔLL at the proposal; the current state's is free
+                # from the carried scalars (multiplied by a=0 when A[n,m]=0)
+                I_wo_c = clip_exponent(I_wo)
+                I1p_c = clip_exponent(I_wo + w_prop[:, None] * psi_m)
+                sum_S_Iwo = (S_n * I_wo_c).sum(-1)
+                sum_E_wo = torch.exp(I_wo_c).sum(-1)
+                dll_prop = beta * (((S_n * I1p_c).sum(-1) - sum_S_Iwo) - dt * (torch.exp(I1p_c).sum(-1) - sum_E_wo))
+                dll_cur = beta * ((sS - sum_S_Iwo) - dt * (sE - sum_E_wo))
+            else:
+                dll_prop, dll_cur = dll_fit(w_prop), dll_fit(w_cur)
 
             def log_target(a, w, dll_w):
                 zp = (w - mu) / sig
@@ -327,8 +367,9 @@ def update_adjacency_collapsed(
             w_new = torch.where(accept, w_prop, w_cur)
             g_new = (a_new * w_new)[:, None]
             I_n = I_wo + g_new * psi_m
-            I_c = clip_exponent(I_n)
-            sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
+            if fast:
+                I_c = clip_exponent(I_n)
+                sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
             if use_sub:
                 I_sub = (I_sub - g_cur * psi_s) + g_new * psi_s
             A_cols.append(a_new)
@@ -353,13 +394,25 @@ def update_adjacency_collapsed(
 
 
 def _bin_ll_derivs(S, I, obs, nlin, dt):
-    """Elementwise (d/dI, d²/dI²) of the per-bin log-likelihood at I, by the
-    closed form of the exp-Poisson clipped-exp model."""
+    """Elementwise (d/dI, d²/dI²) of the per-bin log-likelihood at I.
+
+    The exp-Poisson clipped-exp model by its closed form; any other
+    (observation, nonlinearity) pair by autograd of the per-bin
+    log-likelihood (:func:`_grad_and_curvature`). The derivatives shape
+    proposals only (every MH ratio evaluates the likelihood itself), so
+    non-finite values are replaced as in the JAX package: d1 nan→0,
+    ±inf→±1e6; d2 nan→0, +inf→0, −inf→−1e6. Autograd gives them where, for
+    instance, the softplus rate underflows on a spiking bin; left in, they
+    would make the Laplace fit and the reverse density NaN every sweep.
+    """
     if obs.name == "poisson" and nlin.name == "exp":
         lam_dt = exp_clipped(I) * dt
         mask = exponent_active(I).to(I.dtype)
         return (S - lam_dt) * mask, -lam_dt * mask
-    raise NotImplementedError(f"_bin_ll_derivs: {_GENERIC}")
+    d1, d2 = _grad_and_curvature(lambda i: obs.log_likelihood(S, i, nlin, dt), I)
+    d1 = torch.nan_to_num(d1, nan=0.0, posinf=1e6, neginf=-1e6)
+    d2 = torch.nan_to_num(d2, nan=0.0, posinf=0.0, neginf=-1e6)
+    return d1, d2
 
 
 def _cholesky_or_nan(M) -> torch.Tensor:
@@ -371,22 +424,56 @@ def _cholesky_or_nan(M) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], torch.full_like(L, torch.nan).tril(), L)
 
 
+def _design_currents(I0, Phi, theta) -> torch.Tensor:
+    """(T, N) currents I0 + Φ θ_n of a linear block: Φ is (T, D), shared by
+    the neurons, or (N, T, D), one design per neuron (the transpose of the
+    JAX package's (T, N, D): each neuron's design is contiguous, so its
+    products are plain batched matrix products); θ is (N, D)."""
+    if Phi.ndim == 3:
+        return I0 + torch.bmm(Phi, theta[:, :, None])[..., 0].T
+    return I0 + Phi @ theta.T
+
+
+def _time_chunks(T: int) -> int:
+    """The most chunks, at most 64 and of at least 512 bins each, that cut
+    T bins evenly; 1 when none does."""
+    return max([c for c in range(1, 65) if T % c == 0 and T // c >= 512] or [1])
+
+
+def _weighted_gram(Phi, w) -> torch.Tensor:
+    """Σ_t w[n, t]·φ[n, t] φ[n, t]ᵀ (N, D, D) of a per-neuron design Φ
+    (N, T, D) with weights w (N, T). Each neuron's sum over T is cut into
+    :func:`_time_chunks` chunks that form a batch of N·C products, summed
+    after. One product per neuron reduces all T in N thread blocks: in the
+    spatiotemporal glm update at N=27, T=60,000 those products took 27.7 of
+    its 37.1 ms of device time on an H100 (``tools/glm_probe.py``)."""
+    N, T, D = Phi.shape
+    C = _time_chunks(T)
+    weighted = (Phi * w[..., None]).view(N * C, T // C, D)
+    return torch.bmm(weighted.transpose(1, 2), Phi.view(N * C, T // C, D)).view(N, C, D, D).sum(1)
+
+
 def _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta=1.0, n_newton: int = 6):
     """The deterministic part of the Laplace block: ``n_newton`` Newton
     steps from ``theta0`` to each neuron's conditional mode θ*, then the
     Cholesky factor C of −H* (C Cᵀ = −H*, NaN where −H* is not positive
-    definite). The design Φ (T, D) is shared by the neurons (the per-neuron
-    designs of the spatiotemporal and shared stimuli wait for queue 1 item
-    10). Returns (θ* (N, D), C (N, D, D))."""
+    definite). The design Φ is (T, D) or (N, T, D) (:func:`_design_currents`);
+    ``prior_mu``/``prior_sd`` broadcast to θ's (N, D). Returns (θ* (N, D),
+    C (N, D, D))."""
     prior_prec = 1.0 / (prior_sd * prior_sd)
     eye_prec = torch.diag_embed(prior_prec.expand_as(theta0))
 
     def grad_negH(theta):
-        d1, d2 = _bin_ll_derivs(S, I0 + Phi @ theta.T, obs, nlin, dt)
+        d1, d2 = _bin_ll_derivs(S, _design_currents(I0, Phi, theta), obs, nlin, dt)
         # curvature clamp (proposal shaping only; the MH ratio is exact)
         d2 = torch.clamp(d2, max=0.0)
-        negH = -((d2.T[:, :, None] * Phi[None]).transpose(1, 2) @ Phi)  # Σ_t d2·φφᵀ per neuron
-        return beta * (d1.T @ Phi) - (theta - prior_mu) * prior_prec, beta * negH + eye_prec
+        if Phi.ndim == 3:
+            grad = torch.bmm(d1.T[:, None, :], Phi)[:, 0]
+            negH = -_weighted_gram(Phi, d2.T)
+        else:
+            grad = d1.T @ Phi
+            negH = -((d2.T[:, :, None] * Phi[None]).transpose(1, 2) @ Phi)  # Σ_t d2·φφᵀ per neuron
+        return beta * grad - (theta - prior_mu) * prior_prec, beta * negH + eye_prec
 
     theta = theta0
     for _ in range(n_newton):
@@ -396,22 +483,21 @@ def _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta=1.0
     return theta, _cholesky_or_nan(negH)
 
 
-def _laplace_mh_step(
-    generator, S, dt, obs, nlin, I0, Phi, theta_cur, theta_star, C, prior_mu, prior_sd, beta=1.0,
-):
-    """Independence MH from the Laplace fit (θ*, C): the proposal is the
-    defensive mixture 0.9·N(θ*, (−H*)⁻¹) + 0.1·prior, per neuron. Returns
-    (θ_new (N, D), accept (N,) bool).
+def _independence_mh(generator, log_target, theta_cur, theta_star, C, prior_mu, prior_sd):
+    """Independence MH of K independent D-vectors (the neurons of a block,
+    or one global filter) from their Laplace fits (θ*, C): the proposal is
+    the defensive mixture 0.9·N(θ*, (−H*)⁻¹) + 0.1·prior. ``log_target``
+    maps (K, D) to (K,). Returns (θ_new (K, D), accept (K,) bool).
 
     A non-finite current target or reverse density is an escape hatch
     (accept any finite proposal); a non-finite proposal is rejected. All of
     it is tensor arithmetic, so a NaN factor never reaches the host.
     """
-    N, D = theta_cur.shape
+    K, D = theta_cur.shape
     f = theta_cur.dtype
     log_det_C = torch.log(torch.diagonal(C, dim1=1, dim2=2)).sum(1)
-    z = torch.randn((N, D), generator=generator, dtype=f, device=theta_cur.device)
-    u_mix, u_acc = torch.rand((2, N), generator=generator, dtype=f, device=theta_cur.device)
+    z = torch.randn((K, D), generator=generator, dtype=f, device=theta_cur.device)
+    u_mix, u_acc = torch.rand((2, K), generator=generator, dtype=f, device=theta_cur.device)
     # θ' = θ* + C⁻ᵀ z  ⇒  cov = C⁻ᵀ C⁻¹ = (−H*)⁻¹
     delta = torch.linalg.solve_triangular(C.transpose(1, 2), z[..., None], upper=True)[..., 0]
     # z serves both mutually exclusive branches: each alone is the right draw
@@ -423,11 +509,6 @@ def _laplace_mh_step(
         zp = (theta - prior_mu) / prior_sd
         lq_prior = (-0.5 * zp * zp - torch.log(prior_sd) - _HALF_LOG2PI).sum(1)
         return torch.logaddexp(math.log(0.9) + lq_hat, math.log(0.1) + lq_prior)
-
-    def log_target(theta):
-        ll = obs.log_likelihood(S, I0 + Phi @ theta.T, nlin, dt).sum(0)  # (N,)
-        zp = (theta - prior_mu) / prior_sd
-        return beta * ll - 0.5 * (zp * zp).sum(1)
 
     t_prop = log_target(theta_prop)
     t_cur = log_target(theta_cur)
@@ -442,6 +523,21 @@ def _laplace_mh_step(
     return torch.where(accept[:, None], theta_prop, theta_cur), accept
 
 
+def _laplace_mh_step(
+    generator, S, dt, obs, nlin, I0, Phi, theta_cur, theta_star, C, prior_mu, prior_sd, beta=1.0,
+):
+    """:func:`_independence_mh` of a linear current block I_n = I0_n + Φ θ_n
+    from its Laplace fit (θ*, C), with the block's exact conditional
+    β·LL_n + log prior as the target. Returns (θ_new (N, D), accept (N,))."""
+
+    def log_target(theta):
+        ll = obs.log_likelihood(S, _design_currents(I0, Phi, theta), nlin, dt).sum(0)  # (N,)
+        zp = (theta - prior_mu) / prior_sd
+        return beta * ll - 0.5 * (zp * zp).sum(1)
+
+    return _independence_mh(generator, log_target, theta_cur, theta_star, C, prior_mu, prior_sd)
+
+
 def _laplace_mh_block(
     generator, S, dt, obs, nlin, I0, Phi, theta_cur, theta0,
     prior_mu, prior_sd, beta=1.0, n_newton: int = 6,
@@ -449,7 +545,7 @@ def _laplace_mh_block(
     """Per-neuron Laplace independence-MH on a linear current block
     I_n = I0_n + Φ θ_n (the JAX function's docstring has the argument):
     :func:`_laplace_fit`, then :func:`_laplace_mh_step`. ``prior_mu`` and
-    ``prior_sd`` are tensors of shape (D,) or (N, D). Returns
+    ``prior_sd`` are tensors that broadcast to (N, D). Returns
     (θ_new (N, D), accept (N,) bool)."""
     theta_star, C = _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta, n_newton)
     return _laplace_mh_step(
@@ -470,17 +566,24 @@ def _bias_bkgd_scalars(pop):
     )
 
 
+def _fills(pop, *runs) -> torch.Tensor:
+    """A row on the population's device and dtype from (count, value) runs,
+    made by fills: a host-to-device copy, as item assignment of a Python
+    number makes, would wait for the stream."""
+    return torch.cat([torch.full((n,), v, dtype=pop.dtype, device=pop.device) for n, v in runs])
+
+
 def _glm_prior_rows(pop, D):
-    """(prior_mu, prior_sd) rows [bias; stimulus-weights×(D−1)] on the
-    population's device, made by fills: a host-to-device copy, as item
-    assignment of a Python number makes, would wait for the stream."""
+    """(prior_mu, prior_sd) rows [bias; stimulus-weights×(D−1)]."""
     b_mu, b_sd, s_mu, s_sd = _bias_bkgd_scalars(pop)
+    return _fills(pop, (1, b_mu), (D - 1, s_mu)), _fills(pop, (1, b_sd), (D - 1, s_sd))
 
-    def row(first, rest):
-        full = [torch.full((n,), v, dtype=pop.dtype, device=pop.device) for n, v in ((1, first), (D - 1, rest))]
-        return torch.cat(full)
 
-    return row(b_mu, s_mu), row(b_sd, s_sd)
+def _coupling_current(pop, params, data) -> torch.Tensor:
+    """(T, N) coupling current, the frozen offset of the glm blocks."""
+    d = dict(data)
+    d["_G"] = pop.coupling(params)
+    return pop.impulse.current(params, d)
 
 
 def _glm_block(pop, params, data):
@@ -491,13 +594,10 @@ def _glm_block(pop, params, data):
     ones = torch.ones((S.shape[0], 1), dtype=S.dtype, device=S.device)
     Phi = torch.cat([ones, data["X_stim"].to(S.dtype)], 1) if "X_stim" in data else ones
     D = Phi.shape[1]
-    d = dict(data)
-    d["_G"] = pop.coupling(params)
-    I0 = pop.impulse.current(params, d)
     theta_cur = params["bias"][:, None]
     if D > 1:
         theta_cur = torch.cat([theta_cur, params["w_stim"]], 1)
-    return (Phi, I0, theta_cur, *_glm_prior_rows(pop, D))
+    return (Phi, _coupling_current(pop, params, data), theta_cur, *_glm_prior_rows(pop, D))
 
 
 def glm_laplace_fit(pop, params, data, theta0, beta=1.0, n_newton: int = 6):
@@ -528,6 +628,184 @@ def update_glm_laplace(
     if return_accept:
         return out, accept.to(theta_new.dtype).mean()
     return out
+
+
+def _st_block_a(pop, params, data, I_coup):
+    """Sub-block (a) of the spatiotemporal glm block, θ_n = [bias_n, w_s[n]]
+    given w_t: (Φ (N, T, 1+D) with Φ[n, t] = [1, X_st[t]·w_t[n]], I0 the
+    coupling current, θ_cur (N, 1+D), prior_mu, prior_sd (1+D,))."""
+    X = data["X_st"]  # (T, D, B)
+    T, D, B = X.shape
+    phi = (params["w_stim_t"] @ X.reshape(T * D, B).T).view(-1, T, D)
+    Phi = torch.cat([torch.ones_like(phi[..., :1]), phi], 2)
+    theta = torch.cat([params["bias"][:, None], params["w_stim_s"]], 1)
+    return (Phi, I_coup, theta, *_glm_prior_rows(pop, Phi.shape[2]))
+
+
+def _st_block_b(pop, params, data, I_coup):
+    """Sub-block (b), θ_n = w_t[n] given [bias, w_s]: (Φ (N, T, B) with
+    Φ[n, t] = X_st[t]ᵀ·w_s[n], I0 = coupling current + bias, θ_cur (N, B),
+    prior_mu, prior_sd (B,))."""
+    X = data["X_st"]  # (T, D, B)
+    T, D, B = X.shape
+    Phi = (params["w_stim_s"] @ X.transpose(0, 1).reshape(D, T * B)).view(-1, T, B)
+    _, _, s_mu, s_sd = _bias_bkgd_scalars(pop)
+    return Phi, I_coup + params["bias"][None, :], params["w_stim_t"], _fills(pop, (B, s_mu)), _fills(pop, (B, s_sd))
+
+
+def _st_seeds(theta0):
+    """The sub-blocks' Newton seeds from the dict ``theta0``."""
+    return torch.cat([theta0["bias"][:, None], theta0["w_stim_s"]], 1), theta0["w_stim_t"]
+
+
+def glm_laplace_fit_st(pop, params, data, theta0, beta=1.0, n_newton: int = 6):
+    """The deterministic parts of both spatiotemporal sub-blocks at
+    ``params`` (each sub-block's design from the other's current values):
+    [(θ*_a (N, 1+D), C_a), (θ*_b (N, B), C_b)]."""
+    I_coup = _coupling_current(pop, params, data)
+    out = []
+    for block, th0 in zip((_st_block_a, _st_block_b), _st_seeds(theta0)):
+        Phi, I0, _, mu, sd = block(pop, params, data, I_coup)
+        out.append(_laplace_fit(data["S"], pop.dt, pop.observation, pop.nlin, I0, Phi, th0, mu, sd, beta, n_newton))
+    return out
+
+
+def update_glm_laplace_st(
+    generator, pop, params, data, theta0, beta=1.0, n_newton: int = 6,
+    return_accept: bool = False,
+):
+    """Laplace independence-MH for the spatiotemporal-stimulus glm block.
+
+    The separable receptive field I_stim[t,n] = Σ_db w_s[n,d]·w_t[n,b]·
+    X_st[t,d,b] is bilinear in (w_s, w_t), so the block splits into two
+    conditionally linear sub-blocks updated in turn, each an exact MH on its
+    conditional (:func:`_laplace_mh_block` with a per-neuron design):
+    (a) [bias, w_s] given w_t, then (b) w_t given the new [bias, w_s].
+    ``theta0``: dict with 'bias' (N,), 'w_stim_s' (N, D), 'w_stim_t' (N, B),
+    the state-independent Newton seeds. With ``return_accept`` also the
+    mean of the two sub-blocks' accept rates.
+    """
+    S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
+    I_coup = _coupling_current(pop, params, data)
+    seed_a, seed_b = _st_seeds(theta0)
+    Phi, I0, theta, mu, sd = _st_block_a(pop, params, data, I_coup)
+    theta, acc_a = _laplace_mh_block(generator, S, dt, obs, nlin, I0, Phi, theta, seed_a, mu, sd, beta, n_newton)
+    params = {**params, "bias": theta[:, 0], "w_stim_s": theta[:, 1:]}
+    Phi, I0, theta, mu, sd = _st_block_b(pop, params, data, I_coup)
+    theta, acc_b = _laplace_mh_block(generator, S, dt, obs, nlin, I0, Phi, theta, seed_b, mu, sd, beta, n_newton)
+    params = {**params, "w_stim_t": theta}
+    if return_accept:
+        return params, 0.5 * (acc_a.to(theta.dtype).mean() + acc_b.to(theta.dtype).mean())
+    return params
+
+
+def _shared_block_a(pop, params, data, I_coup):
+    """Sub-block (a) of the shared-stimulus glm block, per-neuron
+    θ_n = [bias_n, gain_n] given w_shared: (Φ (T, 2) = [1, x_tᵀ w_shared],
+    I0 the coupling current, θ_cur (N, 2), and the prior rows of the bias
+    and of the gain, whose prior is :data:`GAIN_PRIOR_MU`/``_SD``)."""
+    drive = data["X_stim"] @ params["w_stim_shared"]
+    Phi = torch.stack([torch.ones_like(drive), drive], 1)
+    theta = torch.stack([params["bias"], params["gain"]], 1)
+    b_mu, b_sd = _bias_bkgd_scalars(pop)[:2]
+    return Phi, I_coup, theta, _fills(pop, (1, b_mu), (1, GAIN_PRIOR_MU)), _fills(pop, (1, b_sd), (1, GAIN_PRIOR_SD))
+
+
+def _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, w0, s_mu, s_sd, beta=1.0, n_newton: int = 6):
+    """Sub-block (b)'s deterministic part: the global filter w (DB,) given
+    (bias, gain) is one concave GLM pooled over all bins of all neurons,
+    with current I0 + gain_n·(x_tᵀ w). ``n_newton`` pooled Newton steps
+    (gradient Σ_tn d1·gain_n x_t, Hessian Σ_tn d2·gain_n² x_t x_tᵀ) from
+    ``w0``, then the Cholesky factor of −H*. Returns (w* (1, DB),
+    C (1, DB, DB)), the one-row form of :func:`_laplace_fit`'s."""
+    prec = 1.0 / (s_sd * s_sd)
+    eye = prec * torch.eye(X.shape[1], dtype=X.dtype, device=X.device)
+    g2 = gain * gain
+
+    def grad_negH(w):
+        d1, d2 = _bin_ll_derivs(S, I0 + (X @ w)[:, None] * gain, obs, nlin, dt)
+        d2 = torch.clamp(d2, max=0.0)
+        g = beta * (X.T @ (d1 @ gain)) - (w - s_mu) * prec
+        return g, beta * (X.T @ (X * (-(d2 @ g2))[:, None])) + eye
+
+    w = w0
+    for _ in range(n_newton):
+        g, nH = grad_negH(w)
+        w = w + torch.linalg.solve_ex(nH, g[:, None])[0][:, 0]
+    _, nH = grad_negH(w)
+    return w[None], _cholesky_or_nan(nH[None])
+
+
+def _shared_filter_inputs(pop, params, data, I_coup):
+    """(X_stim, I0 = coupling current + bias, gain, s_mu, s_sd) of
+    sub-block (b) at ``params``."""
+    _, _, s_mu, s_sd = _bias_bkgd_scalars(pop)
+    return data["X_stim"], I_coup + params["bias"][None, :], params["gain"], s_mu, s_sd
+
+
+def glm_laplace_fit_shared(pop, params, data, theta0, beta=1.0, n_newton: int = 6):
+    """The deterministic parts of both shared-stimulus sub-blocks at
+    ``params``: [(θ*_a (N, 2) of [bias, gain], C_a), (w* (1, DB), C_b)]."""
+    S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
+    I_coup = _coupling_current(pop, params, data)
+    Phi, I0, _, mu, sd = _shared_block_a(pop, params, data, I_coup)
+    seed_a = torch.stack([theta0["bias"], theta0["gain"]], 1)
+    fit_a = _laplace_fit(S, dt, obs, nlin, I0, Phi, seed_a, mu, sd, beta, n_newton)
+    X, I0, gain, s_mu, s_sd = _shared_filter_inputs(pop, params, data, I_coup)
+    return [fit_a, _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, theta0["w_stim_shared"], s_mu, s_sd,
+                                      beta, n_newton)]
+
+
+def update_glm_laplace_shared(
+    generator, pop, params, data, theta0, beta=1.0, n_newton: int = 6,
+    return_accept: bool = False,
+):
+    """Laplace independence-MH for the shared-tuning-curve glm block.
+
+    The shared stimulus current I_stim[t,n] = gain_n·(x_tᵀ w_shared) couples
+    all neurons through the global filter, so the block splits into
+    (a) per-neuron [bias, gain] given w_shared (:func:`_laplace_mh_block`)
+    and (b) the global w_shared given (bias, gain): one pooled Newton
+    (:func:`_shared_filter_fit`) and a single MH accept, with the same
+    defensive prior mixture and escape hatches as the per-neuron blocks.
+    With ``return_accept`` also the mean of the two sub-blocks' accept rates.
+    """
+    S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
+    I_coup = _coupling_current(pop, params, data)
+    Phi, I0, theta, mu, sd = _shared_block_a(pop, params, data, I_coup)
+    seed_a = torch.stack([theta0["bias"], theta0["gain"]], 1)
+    theta, acc_a = _laplace_mh_block(generator, S, dt, obs, nlin, I0, Phi, theta, seed_a, mu, sd, beta, n_newton)
+    params = {**params, "bias": theta[:, 0], "gain": theta[:, 1]}
+
+    w_new, acc_b = _shared_filter_mh(
+        generator, pop, data, *_shared_filter_inputs(pop, params, data, I_coup), params["w_stim_shared"],
+        theta0["w_stim_shared"], beta, n_newton,
+    )
+    params = {**params, "w_stim_shared": w_new}
+    if return_accept:
+        f = w_new.dtype
+        return params, 0.5 * (acc_a.to(f).mean() + acc_b.to(f))
+    return params
+
+
+def _shared_filter_mh(generator, pop, data, X, I0, gain, s_mu, s_sd, w_cur, w0, beta=1.0, n_newton: int = 6):
+    """Sub-block (b) of the shared glm block: :func:`_shared_filter_fit`
+    from the seed ``w0``, then one :func:`_independence_mh` accept of the
+    global filter against its exact conditional. Returns (w_new (DB,),
+    accept (0-d bool))."""
+    S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
+    w_star, C = _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, w0, s_mu, s_sd, beta, n_newton)
+
+    def log_target(w):  # (1, DB) -> (1,)
+        ll = obs.log_likelihood(S, I0 + (X @ w[0])[:, None] * gain, nlin, dt).sum()
+        zp = (w - s_mu) / s_sd
+        return beta * ll - 0.5 * (zp * zp).sum(1)
+
+    DB = w_cur.shape[0]
+    w_new, accept = _independence_mh(
+        generator, log_target, w_cur[None], w_star, C, _fills(pop, (DB, s_mu)), _fills(pop, (DB, s_sd))
+    )
+    return w_new[0], accept[0]
 
 
 # ---------------------------------------------------------------------------

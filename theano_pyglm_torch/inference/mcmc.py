@@ -16,24 +16,29 @@ Warmup follows Stan-style expanding adaptation windows
 (:func:`warmup_schedule`). The JAX package's chunk-length alignment
 (``warmup_chunk``/``sampling_chunk``) and its traced ``data`` argument exist
 only for XLA compiles and have no counterpart here: ``chunk_size`` paces the
-callbacks and the host copies of the samples. Not ported yet:
-``glm_update='hmc'`` with stimulus whitening and ``bias_update='ars'``
-(ROADMAP.md, queue 1 item 10), checkpoints and resume (item 8), and the glm
-blocks of the spatiotemporal and shared stimulus variants (item 10).
+callbacks, the host copies of the samples, the ARS bias pass and the
+checkpoints. Every draw of a sweep comes from the chain's generator, so the
+chunk layout does not change the draws of the sweeps, and a run restored
+from a checkpoint (the states, the generators' states and the iteration;
+:mod:`theano_pyglm_torch.utils.checkpoints`) continues exactly.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from theano_pyglm_torch.inference.gibbs import (
+    _coupling_current,
     refresh_disconnected_weights,
     update_adjacency_collapsed,
     update_er_rho,
     update_glm_laplace,
+    update_glm_laplace_shared,
+    update_glm_laplace_st,
     update_latent_rotation,
     update_sbm_hypers,
     update_sbm_types_collapsed,
@@ -45,6 +50,7 @@ from theano_pyglm_torch.inference.hmc import (
     hmc_adaptive_step,
     reset_variance,
 )
+from theano_pyglm_torch.utils.checkpoints import latest_step, restore_checkpoint, save_checkpoint
 
 __all__ = [
     "SWEEP_STAGES",
@@ -55,10 +61,8 @@ __all__ = [
     "anneal_schedule",
     "adapt_boundary",
     "thin_chunk",
+    "whitening_factor",
 ]
-
-_ITEM8 = "not ported yet (ROADMAP.md, queue 1 item 8: utils/checkpoints.py)"
-_ITEM10 = "not ported yet (ROADMAP.md, queue 1 item 10: other model variants and samplers)"
 
 
 def _glm_theta0(pop, data, fisher_params, bk_type):
@@ -210,6 +214,9 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
     ``row_batch``: run the adjacency stage ``row_batch`` postsynaptic rows
     at a time (bounded ψ memory). ``fisher_params``: the parameters at which
     the glm Laplace block seeds its Newton iterations (typically the MAP).
+    ``glm_update``: 'auto' or 'laplace' sample the glm block by the
+    Laplace-MH update of the stimulus variant (:data:`_GLM_LAPLACE`);
+    'hmc' by HMC with the stimulus weights whitened (:func:`whitening_factor`).
     ``stages``: a subset of :data:`SWEEP_STAGES` to run, the others passing
     their state through. A strict subset is not a valid posterior kernel
     and needs ``diagnostic=True`` (per-stage timing and A/B diagnostics
@@ -235,12 +242,16 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
 
     if glm_update not in ("auto", "laplace", "hmc"):
         raise ValueError(f"unknown glm_update {glm_update!r}")
-    if glm_update == "hmc":
-        raise NotImplementedError(f"glm_update='hmc' (whitened HMC on the glm block) is {_ITEM10}")
+    glm_laplace = glm_update != "hmc"
     bk_type = pop.spec.get("bkgd", {}).get("type", "none")
-    theta0 = _glm_theta0(pop, data, fisher_params, bk_type)
-    if bk_type not in ("none", "basis"):
-        raise NotImplementedError(f"the glm Laplace block of the {bk_type!r} stimulus is {_ITEM10}")
+    if glm_laplace:
+        theta0 = _glm_theta0(pop, data, fisher_params, bk_type)
+        glm_laplace_fn = _GLM_LAPLACE[bk_type]
+    # The HMC fallback samples the stimulus weights whitened, w̃ = w Rᵀ with
+    # R = chol(XᵀX/T + 1e-6·I): overlapping basis columns correlate X_stim's
+    # columns, which a diagonal preconditioner cannot undo. An exact change
+    # of variables with a constant Jacobian; model and prior are untouched.
+    R = whitening_factor(data["X_stim"]) if "X_stim" in data and not glm_laplace else None
     zero = torch.zeros((), dtype=pop.dtype, device=pop.device)
 
     def sweep(generator, state, adapt: bool, beta: float = 1.0):
@@ -252,8 +263,8 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
             if not _on(name):
                 new_state[name] = state[name]
                 continue
-            if name == "glm":
-                params, acc = update_glm_laplace(
+            if name == "glm" and glm_laplace:
+                params, acc = glm_laplace_fn(
                     generator, pop, params, data, theta0, beta=beta, return_accept=True
                 )
                 opt, _ = _partition(params, keys)
@@ -264,6 +275,8 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
                 # the likelihood does not touch the latents; the graph prior does
                 def logp(o, frozen=frozen):
                     return pop.graph.log_prior({**frozen, **o})
+            elif name == "glm":
+                opt, logp = _glm_hmc_target(pop, params, data, R, beta)
             else:  # 'imp': the full likelihood, through the fused kernels K1/K2
                 def logp(o, frozen=frozen):
                     p = {**frozen, **o}
@@ -273,7 +286,8 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
             h = hmc_adaptive_step(
                 generator, logp, h, n_steps=n_leapfrog, target_accept=target_accept, adapt=adapt
             )
-            params = {**frozen, **h.position}
+            out = _whitened(h.position, R, inverse=True) if name == "glm" else h.position
+            params = {**frozen, **out}
             new_state[name] = h
 
         if _on("hypers"):
@@ -295,6 +309,53 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
         return new_state
 
     return sweep
+
+
+#: the glm block's Laplace-MH update of each stimulus variant
+_GLM_LAPLACE = {
+    "none": update_glm_laplace,
+    "basis": update_glm_laplace,
+    "spatiotemporal": update_glm_laplace_st,
+    "shared": update_glm_laplace_shared,
+}
+
+
+def whitening_factor(X) -> torch.Tensor:
+    """R = chol(XᵀX/T + 1e-6·I), lower, of a (T, DB) stimulus design: the
+    glm HMC block samples w̃ = w Rᵀ in place of the stimulus weights w."""
+    eye = torch.eye(X.shape[1], dtype=X.dtype, device=X.device)
+    return torch.linalg.cholesky(X.T @ X / X.shape[0] + 1e-6 * eye)
+
+
+def _whitened(opt: dict, R, inverse: bool = False) -> dict:
+    """``opt`` with its 'w_stim' whitened (w Rᵀ) or, with ``inverse``,
+    de-whitened (w̃ R⁻ᵀ, a triangular solve); unchanged without R or
+    'w_stim'."""
+    if R is None or "w_stim" not in opt:
+        return opt
+    w = opt["w_stim"]
+    if inverse:
+        w = torch.linalg.solve_triangular(R.T, w, upper=True, left=False)
+    else:
+        w = w @ R.T
+    return {**opt, "w_stim": w}
+
+
+def _glm_hmc_target(pop, params, data, R, beta):
+    """(the glm block's whitened position, its log-density) for the HMC
+    fallback: β·LL + the bias and stimulus priors, with the coupling current
+    computed once outside the leapfrog. The likelihood is the plain one: the
+    fused kernels take the coupling weights, which this block holds fixed."""
+    opt, frozen = _partition(params, _HMC_BLOCKS[0][1])
+    I_coupling = _coupling_current(pop, params, data)
+
+    def logp(o):
+        p = {**frozen, **_whitened(o, R, inverse=True)}
+        I = pop.bias.current(p, data) + pop.bkgd.current(p, data) + I_coupling
+        ll = pop.observation.log_likelihood(data["S"], I, pop.nlin, pop.dt).sum()
+        return beta * ll + pop.bias.log_prior(p) + pop.bkgd.log_prior(p)
+
+    return _whitened(opt, R), logp
 
 
 def thin_chunk(samples, thin: int, phase: int):
@@ -327,20 +388,66 @@ def _stack_chunk(chunk) -> dict:
             for k in chunk[0][0]}
 
 
+class _Store:
+    """The checkpoints and persisted sample chunks of one sampler run in
+    ``directory``: the chains' states, their generators' states and the
+    summed birth–death acceptance, saved at the end of a chunk that crosses
+    a multiple of ``every`` (every chunk when 0) and at the very end; each
+    sampling chunk's kept draws as ``samples_<iteration>.npz``."""
+
+    def __init__(self, directory: str, every: int, generators, device):
+        self.directory, self.every, self.generators, self.device = directory, every, generators, device
+
+    def restore(self):
+        """(iteration, states, summed acceptance, kept sample chunks) of the
+        latest checkpoint, with the generators set to their saved states;
+        None without one. Only the sample chunks at or before the restored
+        iteration count: later ones are made again."""
+        step = latest_step(self.directory)
+        if step is None:
+            return None
+        saved, gen_states, step = restore_checkpoint(self.directory, step, map_location=self.device)
+        for g, st in zip(self.generators, gen_states):
+            g.set_state(st)
+        chunks = []
+        for f in sorted(os.listdir(self.directory)):
+            if f.startswith("samples_") and f.endswith(".npz") and int(f[8:-4]) <= step:
+                with np.load(os.path.join(self.directory, f)) as z:
+                    chunks.append({k: z[k] for k in z.files})
+        return step, saved["states"], saved["accept_sum"], chunks
+
+    def persist(self, it: int, kept: dict) -> None:
+        os.makedirs(self.directory, exist_ok=True)
+        np.savez_compressed(os.path.join(self.directory, f"samples_{it:09d}.npz"), **kept)
+
+    def checkpoint(self, prev_it: int, it: int, last: bool, states, acc_sum) -> None:
+        if self.every and prev_it // self.every == it // self.every and not last:
+            return
+        save_checkpoint(self.directory, it, {"states": states, "accept_sum": acc_sum}, self.generators)
+
+
 def _run(step, states, n_warmup, n_samples, thin, chunk_size, anneal_frac, callback,
-         end_of_warmup=None):
+         end_of_warmup=None, after_chunk=None, store: Optional[_Store] = None, resume: bool = False):
     """Drive ``step(states, adapt, beta) -> states`` (one state per chain)
     through warmup, its adaptation windows and then sampling.
 
-    ``callback(phase, sweeps done in the phase, states)`` runs every
-    ``chunk_size`` sweeps and at the end of each phase; the retained draws
-    are copied to the host at the same points. Returns (states, samples
-    {leaf: (n_samples, n_chains, ...) numpy}, per-chain mean acceptance of
-    the birth–death move over all sweeps, or None).
+    A chunk ends every ``chunk_size`` sweeps of a phase and at the end of
+    each phase. There, in order: ``after_chunk(iteration, states, beta)``
+    may replace the states (the ARS bias pass); the chunk's kept draws are
+    copied to the host (sampling); ``store`` persists them and checkpoints;
+    ``callback(phase, sweeps done in the phase, states)`` runs. With
+    ``resume`` the run starts from the store's latest checkpoint, if any.
+    Returns (states, samples {leaf: (n_samples, n_chains, ...) numpy},
+    per-chain mean acceptance of the birth–death move over all sweeps, or
+    None).
     """
     boundaries = warmup_schedule(n_warmup)
     beta_at = anneal_schedule(n_warmup, anneal_frac)
-    acc_sum = None
+    total = n_samples * thin
+    start, acc_sum, host = 0, None, []
+    restored = store.restore() if store is not None and resume else None
+    if restored is not None:
+        start, states, acc_sum, host = restored
 
     def track(states):
         nonlocal acc_sum
@@ -348,38 +455,54 @@ def _run(step, states, n_warmup, n_samples, thin, chunk_size, anneal_frac, callb
             acc = torch.stack([s["accept_adjacency"] for s in states])
             acc_sum = acc if acc_sum is None else acc_sum + acc
 
-    for it in range(n_warmup):
-        states = step(states, True, 1.0 if beta_at is None else beta_at(it))
+    def chunk_end(phase, done, prev_it, it, states, beta, kept=None):
+        if after_chunk is not None:
+            states = after_chunk(it, states, beta)
+        if kept is not None:
+            kept = {k: v.cpu().numpy() for k, v in kept.items()}
+            host.append(kept)
+        if store is not None:
+            if kept is not None:
+                store.persist(it, kept)
+            store.checkpoint(prev_it, it, it == n_warmup + total, states, acc_sum)
+        if callback is not None:
+            callback(phase, done, states)
+        return states
+
+    prev = start
+    for it in range(start, n_warmup):
+        beta = 1.0 if beta_at is None else beta_at(it)
+        states = step(states, True, beta)
         track(states)
         for b, action in boundaries:
             if b == it + 1:
                 states = [adapt_boundary(s, action) for s in states]
-        if callback is not None and ((it + 1) % chunk_size == 0 or it + 1 == n_warmup):
-            callback("warmup", it + 1, states)
-    if end_of_warmup is not None:
+        if (it + 1) % chunk_size == 0 or it + 1 == n_warmup:
+            states = chunk_end("warmup", it + 1, prev, it + 1, states, beta)
+            prev = it + 1
+    if end_of_warmup is not None and start <= n_warmup:
         states = end_of_warmup(states)
 
-    total = n_samples * thin
-    host, chunk, phase = [], [], 0
-    for it in range(total):
+    chunk = []
+    for it in range(max(start - n_warmup, 0), total):
         states = step(states, False, 1.0)
         track(states)
         chunk.append([s["params"] for s in states])
         if (it + 1) % chunk_size == 0 or it + 1 == total:
-            kept = thin_chunk(_stack_chunk(chunk), thin, phase)
-            host.append({k: v.cpu().numpy() for k, v in kept.items()})
-            phase, chunk = it + 1, []
-            if callback is not None:
-                callback("sample", it + 1, states)
+            kept = thin_chunk(_stack_chunk(chunk), thin, it + 1 - len(chunk))
+            states = chunk_end("sample", it + 1, prev, n_warmup + it + 1, states, 1.0, kept)
+            prev, chunk = n_warmup + it + 1, []
     samples = {k: np.concatenate([h[k] for h in host], 0) for k in host[0]} if host else {}
     n_sweeps = n_warmup + total
     acc = None if acc_sum is None or n_sweeps == 0 else (acc_sum / n_sweeps).cpu().numpy()
     return states, samples, acc
 
 
-def _check_unported(checkpoint_dir, resume):
-    if checkpoint_dir is not None or resume:
-        raise NotImplementedError(f"checkpoint_dir/resume are {_ITEM8}")
+def _ars_random_state(seed: int, it: int) -> np.random.RandomState:
+    """The host RandomState of the ARS pass at global iteration ``it``,
+    seeded from (the generator's seed, the iteration): a restored run
+    replays the same ARS draws."""
+    return np.random.RandomState(np.random.SeedSequence([seed, 7, it]).generate_state(1)[0])
 
 
 def gibbs_sample(
@@ -413,12 +536,26 @@ def gibbs_sample(
     block's accept rate and step size and ``accept_rate_adjacency``, the
     birth–death move's mean acceptance over all sweeps. ``callback(phase,
     iteration, state)`` gets the global iteration count.
+
+    Checkpoints: with ``checkpoint_dir``, the state, the generator's state
+    and the iteration are saved at the end of every chunk that crosses a
+    multiple of ``checkpoint_every`` (0: every chunk) and at the end, and
+    each sampling chunk's draws are kept there as ``samples_*.npz``;
+    ``resume=True`` continues exactly from the latest checkpoint, with the
+    generator set to its saved state (pass the first run's ``init_params``:
+    the glm block's Newton seed comes from them, or, without them, from a
+    prior draw of ``generator``).
+
+    ``bias_update='ars'`` also redraws every neuron's bias from its exact
+    conditional by adaptive rejection sampling at the end of each chunk
+    (:func:`theano_pyglm_torch.inference.ars.update_bias_ars`; exp-Poisson
+    only; skipped while annealed warmup tempers the likelihood). It is host
+    code: one copy of the currents' sums to the host and of the new biases
+    back per pass. Its host RandomState is seeded from the generator's seed
+    and the iteration, so a resumed run replays it.
     """
-    _check_unported(checkpoint_dir, resume)
     if bias_update not in ("default", "ars"):
         raise ValueError(f"unknown bias_update {bias_update!r}")
-    if bias_update == "ars":
-        raise NotImplementedError(f"bias_update='ars' is {_ITEM10}")
     if n_warmup is None:
         n_warmup = max(100, n_samples // 5)
     if init_params is None:
@@ -429,14 +566,28 @@ def gibbs_sample(
     def step(states, adapt, beta):
         return [sweep(generator, states[0], adapt, beta)]
 
+    after_chunk = None
+    if bias_update == "ars":
+        from theano_pyglm_torch.inference.ars import update_bias_ars
+
+        def after_chunk(it, states, beta):
+            if beta < 1.0:  # ARS targets the untempered conditional
+                return states
+            # the generator's seed, read now: after a restore it is the first run's
+            rng = _ars_random_state(generator.initial_seed(), it)
+            params = update_bias_ars(rng, pop, states[0]["params"], data)
+            return [{**states[0], "params": params}]
+
     cb = None
     if callback is not None:
         def cb(phase, it, states):
             callback(phase, it if phase == "warmup" else n_warmup + it, states[0])
 
+    store = None if checkpoint_dir is None else _Store(checkpoint_dir, checkpoint_every, [generator], pop.device)
     (state,), samples, acc = _run(
         step, [init_mcmc_state(pop, init_params, step_size=step_size)],
         n_warmup, n_samples, thin, chunk_size, anneal_frac, cb,
+        after_chunk=after_chunk, store=store, resume=resume,
     )
     samples = {k: v[:, 0] for k, v in samples.items()}
     diagnostics = {}

@@ -7,7 +7,7 @@ as a loop over per-chain states on one device; the JAX package ``vmap``s
 the sweep over a leading chain axis, which needs the chain-batched fused
 kernel K3 (ROADMAP.md, queue 2) and a chain dimension through every stage.
 Sharding chains over several devices (``mesh``) is not ported yet (queue 1
-item 14), nor are checkpoints (item 8).
+item 14).
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ import torch
 from theano_pyglm_torch.inference.hmc import HMCState
 from theano_pyglm_torch.inference.mcmc import (
     _GLM_KEYS,
-    _check_unported,
     _run,
+    _Store,
     init_mcmc_state,
     make_sweep,
 )
@@ -107,12 +107,18 @@ def gibbs_sample_chains(
     move's mean acceptance over all sweeps; states is the list of the
     chains' final states. ``callback(phase, sweeps done in the phase,
     states)`` runs every ``chunk_size`` sweeps.
+
+    Checkpoints as in :func:`theano_pyglm_torch.inference.mcmc.gibbs_sample`:
+    with ``checkpoint_dir`` every chain's state and generator state are
+    saved where a chunk crosses a multiple of ``checkpoint_every`` (0: every
+    chunk) and at the end, each sampling chunk's draws are kept as
+    ``samples_*.npz``, and ``resume=True`` continues exactly from the latest
+    checkpoint, the generators set to their saved states.
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh: sharding chains over devices is not ported yet (ROADMAP.md, queue 1 item 14)"
         )
-    _check_unported(checkpoint_dir, resume)
     if n_warmup is None:
         n_warmup = max(100, n_samples // 5)
 
@@ -140,9 +146,10 @@ def gibbs_sample_chains(
     def step(states, adapt, beta):
         return [sweep(g, s, adapt, beta) for g, s in zip(gens, states)]
 
+    store = None if checkpoint_dir is None else _Store(checkpoint_dir, checkpoint_every, gens, pop.device)
     states, samples, acc = _run(
         step, states, n_warmup, n_samples, thin, chunk_size, anneal_frac, callback,
-        end_of_warmup=_share_adaptation,
+        end_of_warmup=_share_adaptation, store=store, resume=resume,
     )
     diagnostics = {"convergence": summarize_chains(samples)}
     for name in ("glm", "imp", "latent"):
