@@ -28,7 +28,7 @@ Phases, each of which raises on a mismatch or a non-finite value:
    through K2 and through the plain per-neuron torch path.
 5. The flagship's Gibbs sampler on phase 3's population, data and MAP fit:
    theano_pyglm_torch.scripts.rgc_flagship.run with 4 chains, 40 warmup and
-   20 sampling sweeps of the full sweep (glm Laplace block, HMC on the
+   10 sampling sweeps of the full sweep (glm Laplace block, HMC on the
    impulse logits and the latent locations, weight hypers, collapsed (A, W)
    birth-death, rotation), then R-hat, ESS and link-prediction AUC. The
    kernels' launch counts over the run must equal what the sweep implies;
@@ -47,14 +47,14 @@ Phases, each of which raises on a mismatch or a non-finite value:
    launches equal to the training segments summed over the evaluations.
    Config 3 (N=10, T=30,000): MAP, 4 chains x (20 + 10) sweeps. Config 4
    (SBM N=16, T=60,000, planted partition): 4 chains x (40 annealed warmup
-   + 20) sweeps, launches as the sweep implies, types, pi and B in range,
+   + 10) sweeps, launches as the sweep implies, types, pi and B in range,
    no synchronizing call in the discrete stage or the full sweep, and the
    collapsed type conditionals and the log-joint of chain 0's final state
    on the card against the CPU in float64.
 7. The sampler's model variants, each path with the launch counts set to
    0 just before it and read just after. 7a: spatiotemporal_glm at N=27,
    T=60,000 with its own widths (D_stim=25, stimulus and impulse bases of
-   5): simulate, prepare_data, smart init, MAP, 4 chains x (40 + 20)
+   5): simulate, prepare_data, smart init, MAP, 4 chains x (40 + 10)
    sweeps of the bilinear glm block; launches exactly as implied, glm
    acceptance above 0.5, both sub-blocks' Laplace modes (1e-4 rel. L2) and
    the log-joint (1e-5 rel.) of chain 0's final state against the CPU in
@@ -69,17 +69,52 @@ Phases, each of which raises on a mismatch or a non-finite value:
    bias_update='ars': launches, accept rates, one host round trip per ARS
    pass (counted by the sync debug mode), the whitening factor against the
    CPU (1e-5). 7e: K1/K2 against the plain version at the held-out shape
-   (T=12,000), as in phase 2, then the predictive log-likelihood of 7a's 80
+   (T=12,000), as in phase 2, then the predictive log-likelihood of 7a's 40
    draws on the last 20 % of a fresh simulation of 7a's generating
    parameters: one K1 launch per draw, above a prior draw's. 7f: 7a's
    model, 2 chains x 30 sweeps checkpointed every 10, uninterrupted and
    stopped at 20 then resumed: the kept draws and final states equal bit
    for bit.
+8. Long recordings at N=100, T=600,000 (10 min at 1 ms), B=5: the model,
+   planted network and stimulus of
+   theano_pyglm_torch/scripts/stretch_streaming.py. 8a: K1/K2 against the
+   plain version as in phase 2 at the path's three shapes, all in two
+   column groups of U: (600,000, 500, 100) resident, (65,536, 500, 100)
+   one block, (10,176, 500, 100) the ragged last block, each with the bound
+   of X_f read once and read once per group. 8b: simulate, mean rate in
+   1-20 Hz. 8c: MAP on the streamed design (time_chunk=65,536, no X_imp):
+   K2 launches 10 x the value+grad evaluations and K1 10 x the value-only
+   ones, the MAP log-joint at least the truth's, and the device memory one
+   streamed value+grad evaluation adds below the 1.2 GB design. 8d: the
+   resident log-likelihood at the MAP point equal to the streamed one
+   (1e-5 rel.), then 1 chain x (40 + 10) sweeps with row_batch=4:
+   launches as the sweep implies, leaves finite, A binary, ms per sweep,
+   and one sweep of each stage alone.
+   8e: the card's float32 streamed log-joint and gradient at the truth
+   against the CPU's float64 (1e-5 rel., 1e-4 rel. L2), over the full T if
+   the CPU's projected time is under 60 s, else over the first two blocks.
+9. The harness at the flagship's width, N=27, 60 s: a .mat fixture
+   (utils/rgc.py), binned by the native binner and by numpy, the same
+   counts; K1/K2 against the plain version as in phase 2 at fit_rgc's
+   training shape (T=48,000); scripts/fit_rgc.py on it (MAP, 40 + 20 sweeps, report); then
+   cli generate, map and mcmc (40 + 20): every output written (the figure
+   where matplotlib is installed), every likelihood evaluation through K1
+   or K2 and both launched.
+
+Depths cut to keep the script near 10 minutes once phases 8-9 came (their
+widths, N and T, are not cut; no warmup is cut): the kept sweeps of phase
+5, config 4 and 7a from 20 to 10, the per-stage timings from 5 sweeps to
+3. Every sampler run with 40 warmup sweeps (the least for which
+inference/mcmc.py's warmup_schedule opens the mass-matrix windows) adapts
+the diagonal mass of each HMC block its model has: the impulse block (imp)
+in phases 5, 6 (config 4), 7a, 7b, 7d, 8d and 9; the latent locations in
+phases 5 and 7d; the whitened glm-HMC block in 7d (glm_update='hmc').
+Configs 2 and 3 keep their 20 warmup sweeps (step size only), as before.
 
 The line before the last two is one JSON object describing the kernels
 (times and errors from phase 2, launches summed over the paths of phases
-3, 5, 6 and 7), the next the card's name and power limit; the last is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits
+3, 5, 6, 7, 8 and 9), the next the card's name and power limit; the last
+is {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
@@ -117,7 +152,7 @@ T = 60_000  # 1 ms bins
 DT = 1e-3
 SEED = 0
 HMC_TRANSITIONS, LEAPFROG_STEPS = 20, 10
-GIBBS_CHAINS, GIBBS_WARMUP, GIBBS_SAMPLES = 4, 40, 20  # 40: the least warmup with adaptation windows
+GIBBS_CHAINS, GIBBS_WARMUP, GIBBS_SAMPLES = 4, 40, 10  # 40: the least warmup with adaptation windows
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -164,14 +199,15 @@ def median_ms(fn, n: int = 50, warmup: int = 3, flush=None, device_only: bool = 
     return float(np.median(times))
 
 
-def bound(k: str, ops) -> tuple:
+def bound(k: str, ops, x_reads: int = 1) -> tuple:
     """(ms, resource): the least time the card could take for kernel k on
     these operands: each input read once, each output written once, against
-    the float32 multiply-adds of the product(s)."""
+    the float32 multiply-adds of the product(s). ``x_reads``: count X_f that
+    many times (the kernels read it once per column group)."""
     x, u, ir, s = ops
     T, NB = x.shape
     N = u.shape[1]
-    nbytes = sum(t.numel() * t.element_size() for t in ops)
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + (x_reads - 1) * x.numel() * x.element_size()
     flops = 2 * T * NB * N
     if k == "vg":
         nbytes += 4 * (T * N + NB * N + 1)  # dI_rest, dU, ll
@@ -212,8 +248,21 @@ def setup() -> str:
 # --- phase 2 ----------------------------------------------------------------
 
 
-def _kernel_operands(dev, T, N, clip_entries=0):
+def _kernel_operands(dev, T, N, clip_entries=0, on_device=False):
+    """X_f (T, 5N), U, I_rest and S in float32 on the card, from numpy
+    (or, ``on_device``, from a CUDA generator: the long recording's 300M
+    draws), both seeded with SEED."""
     NB = N * 5
+    if on_device:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        f = dict(dtype=torch.float32, device=dev, generator=g)
+        x, u = 0.1 * torch.randn((T, NB), **f), 0.3 * torch.randn((NB, N), **f)
+        ir = torch.randn((T, N), **f) - 3.0
+        s = torch.poisson(torch.full((T, N), 0.02, device=dev), generator=g)
+        if clip_entries:
+            idx = torch.randperm(T * N, device=dev, generator=g)[:clip_entries]
+            ir.view(-1)[idx] = torch.where(torch.arange(clip_entries, device=dev) % 2 == 0, 45.0, -45.0)
+        return [x, u, ir, s]
     r = np.random.RandomState(SEED)
     x = 0.1 * r.randn(T, NB)
     u = 0.3 * r.randn(NB, N)
@@ -225,14 +274,16 @@ def _kernel_operands(dev, T, N, clip_entries=0):
     return [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in (x, u, ir, s)]
 
 
-def check_kernels(dev, T, N, label, card) -> dict:
+def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
     """K1/K2 against the plain version at (T, NB=5N, N): value 1e-5
     relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 / atol=1e-6 — float32
-    sums over up to 12M terms taken in another order. Then bit-for-bit
-    repeats, one launch per call, and the median times."""
+    sums over up to 60M terms taken in another order. Then bit-for-bit
+    repeats, one launch per call, and the median times, with the bound of
+    the single read and, where U is cut into G column groups, of X_f read G
+    times."""
     max_err = {"fwd": 0.0, "vg": 0.0}
     for clip_entries in (0, 500):
-        ops = _kernel_operands(dev, T, N, clip_entries)
+        ops = _kernel_operands(dev, T, N, clip_entries, on_device)
         ll_r, du_r, dir_r = kernels.fused_poisson_ll_reference(*ops, DT)
         v = kernels.fused_ll_value(*ops, DT)
         ll, du, dir_ = kernels.fused_ll_value_and_grad(*ops, DT)
@@ -254,7 +305,7 @@ def check_kernels(dev, T, N, label, card) -> dict:
             max_err["fwd"] = abs(float(v) - ref)
             max_err["vg"] = max(abs(float(ll) - ref), float((du - du_r).abs().max()), err_dir)
 
-    ops = _kernel_operands(dev, T, N)
+    ops = _kernel_operands(dev, T, N, on_device=on_device)
     launches = dict(kernels.LAUNCHES)
     a, b = kernels.fused_ll_value_and_grad(*ops, DT), kernels.fused_ll_value_and_grad(*ops, DT)
     require(all(torch.equal(x, y) for x, y in zip(a, b)), "K2 not bit-for-bit repeatable")
@@ -278,10 +329,16 @@ def check_kernels(dev, T, N, label, card) -> dict:
         enqueue = median_ms(kern, device_only=False)
         bound_ms, bound_by = bound(k, ops)
         share = bound_ms / cold
+        plan = kernels.launch_plan(T, 5 * N, N, kernels._sm_count(dev.index), k == "vg")
         log(f"{label} T={T} NB={5 * N} N={N}, median of 50 calls, {k}: kernel {warm:.4f} ms warm, "
             f"{cold:.4f} ms cold; plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms cold; "
             f"bound {bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; "
             f"host-inclusive events (the first port's method) {enqueue:.4f} ms [{card}]")
+        if plan.groups > 1:
+            g_ms, g_by = bound(k, ops, x_reads=plan.groups)
+            log(f"  {k}: {plan.groups} column groups of {plan.group_cols}, tile {plan.tile_t}, grid "
+                f"{plan.grid_x} x {plan.grid_y * plan.groups}; with X_f read {plan.groups} times the bound is "
+                f"{g_ms:.4f} ms ({g_by}), share {100 * g_ms / cold:.1f} %")
         if warm < bound_ms:
             log(f"  {k}: the warm time beats the HBM bound because X_f ({ops[0].numel() * 4 / 1e6:.1f} MB) "
                 f"stays in the 50 MB L2; no share is taken from it")
@@ -553,11 +610,11 @@ def gibbs_phase(sl, card: str) -> dict:
 
 def time_sweeps(pop, data, fit, states, card, label="", stages=SWEEP_STAGES, **sweep_kw) -> dict:
     """The full sweep over all chains in turn and on one chain, then each of
-    ``stages`` alone on one chain: ms per sweep over 5 sweeps, the
+    ``stages`` alone on one chain: ms per sweep over 3 sweeps, the
     synchronizing calls of one sweep, then (last) the device's activities
     and busy ms of one sweep under torch.profiler. Returns {stage or None:
     its synchronizing calls}."""
-    n_rep = 5
+    n_rep = 3  # depth cut (see the module note)
     gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(len(states))]
     full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, **sweep_kw)
     sts = list(states)
@@ -602,7 +659,7 @@ ACCEPT_SHAPES = {1: (60_000, 1), 2: (240_000, 10), 3: (30_000, 10), 4: (60_000, 
 XV_LAMBDAS, XV_FOLDS, XV_ITER = [1.0, 3.0, 10.0], 3, 100  # the full run: 8 lambdas, 300 iterations
 POST_CHAINS, POST_WARMUP, POST_SAMPLES = 2, 20, 10  # the full run: 2 x (200 + 400)
 C3_CHAINS, C3_WARMUP, C3_SAMPLES = 4, 20, 10  # the full run: 4 x (500 + 1,000)
-C4_CHAINS, C4_WARMUP, C4_SAMPLES = 4, 40, 20  # the full run: 4 x (1,000 + 2,000)
+C4_CHAINS, C4_WARMUP, C4_SAMPLES = 4, 40, 10  # the full run: 4 x (1,000 + 2,000)
 
 
 class XVPopulation(CountingPopulation):
@@ -817,7 +874,7 @@ def accept_config4(dev, card) -> dict:
     full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=init)
     disc = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=init, stages=("discrete",),
                       diagnostic=True)
-    n_rep = 5
+    n_rep = 3  # depth cut (see the module note)
     for name, sweep in (("discrete stage", disc), ("full sweep", full)):
         st = sweep(gens[0], states[0], False, 1.0)  # first use: lazy library set-up
         st, syncs = count_syncs(lambda: sweep(gens[0], st, False, 1.0))
@@ -887,7 +944,7 @@ def acceptance_phase(dev, card) -> dict:
 # --- phase 7 ----------------------------------------------------------------
 
 
-ST_CHAINS, ST_WARMUP, ST_SAMPLES = 4, 40, 20
+ST_CHAINS, ST_WARMUP, ST_SAMPLES = 4, 40, 10  # depth cut (see the module note)
 SHARED_WARMUP, SHARED_SAMPLES = 40, 10
 GENERIC_WARMUP, GENERIC_SAMPLES = 5, 5
 HMC_WARMUP, HMC_SAMPLES, ARS_CHUNK = 40, 10, 10
@@ -1221,7 +1278,269 @@ def variants_phase(dev, card, sl) -> dict:
     log(f"phase 7: {time.perf_counter() - t0:.2f} s")
     return total
 
+
+# --- phase 8 ----------------------------------------------------------------
+
+#: the long recording: N=100, 10 min at 1 ms, B=5 (scripts/stretch_streaming.py)
+N_LONG, T_LONG = 100, 600_000
+# 8d: 40 warmup sweeps, the least with adaptation windows
+LONG_WARMUP, LONG_SAMPLES, LONG_ROW_BATCH = 40, 10, 4
+
+
+def _grads(pop, params, data) -> tuple:
+    """(log-joint, {leaf: gradient}) over the continuous block, float64 on the CPU."""
+    opt, frozen = split_params(params)
+    opt = {k: v.detach().clone().requires_grad_(True) for k, v in opt.items()}
+    val = pop.log_joint({**frozen, **opt}, data)
+    val.backward()
+    return float(val.detach()), {k: v.grad.detach().cpu().double() for k, v in opt.items()}
+
+
+def long_recording_phase(dev, card) -> dict:
+    """Phase 8. Returns the launches of its paths (streamed MAP, resident
+    log-likelihood, the sampler), summed."""
+    from theano_pyglm_torch.scripts import stretch_streaming as stretch
+
+    t_phase = time.perf_counter()
+    C = stretch.TIME_CHUNK
+    n_blocks = -(-T_LONG // C)
+    # (a) the kernels at the path's three shapes: resident, one block, the ragged last block
+    for T_, label in ((T_LONG, "8a resident"), (C, "8a block"), (T_LONG - (n_blocks - 1) * C, "8a last block")):
+        check_kernels(dev, T_, N_LONG, label, card, on_device=True)
+        torch.cuda.empty_cache()
+
+    # (b) the recording
+    spec, pop_res, true, stim = stretch.planted(dev, N_LONG, T_LONG, pop_cls=CountingPopulation)
+    t0 = time.perf_counter()
+    S, rates = stretch.simulate(pop_res, true, T_LONG, stim)
+    torch.cuda.synchronize()
+    rate = float(rates.mean())
+    log(f"8b: simulated N={N_LONG}, T={T_LONG} in {time.perf_counter() - t0:.2f} s [{card}]; "
+        f"{float(S.sum()):.0f} spikes, mean rate {rate:.2f} Hz")
+    require(1.0 <= rate <= 20.0, f"8b: mean rate {rate} Hz outside 1-20 Hz")
+    del rates
+
+    # (c) streamed MAP: no design in the data, one launch per block per evaluation
+    launches = {"fwd": 0, "vg": 0}
+    pop_s = CountingPopulation(spec, time_chunk=C, device=dev)
+    data_s = pop_s.prepare_data(S, stim=stim, materialize_design=False)
+    require("X_imp" not in data_s and "_X_imp_mean" not in data_s, "8c: the streamed data hold a design")
+    t0 = time.perf_counter()
+    before = _counted(pop_s)
+    fit, lp_map, iters = stretch.fit_streamed(pop_s, data_s)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    with torch.no_grad():
+        lp_true = float(pop_s.log_joint(true, data_s))
+    got, evals = _since(pop_s, before)
+    launches = _add(launches, got)
+    log(f"8c: streamed MAP (time_chunk={C}, {n_blocks} blocks) log-joint {float(lp_map):.3f} against the "
+        f"truth's {lp_true:.3f} in {iters} L-BFGS iterations, {t_map:.2f} s [{card}]; likelihood "
+        f"evaluations (the truth's included) {evals}, launches {got}")
+    require(got == {"vg": n_blocks * evals["grad"], "fwd": n_blocks * evals["value"]} and evals["grad"] > 0,
+            f"8c: launches {got} != {n_blocks} x evaluations {evals}")
+    require(math.isfinite(float(lp_map)) and float(lp_map) >= lp_true,
+            f"8c: MAP {float(lp_map)} below the truth {lp_true}")
+    design_bytes = T_LONG * N_LONG * pop_s.B_imp * 4
+    opt, frozen = split_params(fit)
+    opt = {k: v.detach().clone().requires_grad_(True) for k, v in opt.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pop_s.log_joint({**frozen, **opt}, data_s).backward()
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated(dev) - base
+    log(f"8c: one streamed value+grad evaluation adds {added / 1e9:.3f} GB of device memory at its peak; "
+        f"the materialized design would take {design_bytes / 1e9:.3f} GB")
+    require(added < design_bytes, f"8c: a streamed evaluation added {added} B >= the design's {design_bytes} B")
+    del opt
+
+    # (d) resident: the same log-likelihood at the MAP point, then one chain
+    data = pop_res.prepare_data(S, stim=stim)
+    before = _counted(pop_res)
+    with torch.no_grad():
+        ll_res = float(pop_res.log_likelihood(fit, data))
+        got, _ = _since(pop_res, before)
+        ll_str = float(pop_s.log_likelihood(fit, data_s))
+    launches = _add(launches, got)
+    err = abs(ll_res - ll_str) / abs(ll_res)
+    log(f"8d: log-likelihood at the MAP point, resident {ll_res:.3f} (launches {got}) against streamed "
+        f"{ll_str:.3f}: rel {err:.3e}")
+    require(got == {"fwd": 1, "vg": 0}, f"8d: the resident evaluation launched {got}")
+    require(err <= 1e-5, f"8d: resident vs streamed log-likelihood rel err {err}")
+    before = _counted(pop_res)
+    t0 = time.perf_counter()
+    samples, diag, state = gibbs_sample(
+        pop_res, data, torch.Generator(device=dev).manual_seed(SEED), n_samples=LONG_SAMPLES,
+        n_warmup=LONG_WARMUP, init_params=fit, row_batch=LONG_ROW_BATCH, n_leapfrog=LEAPFROG_STEPS,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    got, evals = _since(pop_res, before)
+    launches = _add(launches, got)
+    sweeps = LONG_WARMUP + LONG_SAMPLES
+    log(f"8d: 1 chain x ({LONG_WARMUP} + {LONG_SAMPLES}) sweeps, row_batch={LONG_ROW_BATCH}, in {t_run:.2f} s: "
+        f"{1e3 * t_run / sweeps:.1f} ms per sweep [{card}]; launches {got}; accept rates glm "
+        f"{diag['accept_rate_glm']:.3f}, imp {diag['accept_rate_imp']:.3f}, adjacency "
+        f"{diag['accept_rate_adjacency']:.3f}; peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    _require_sweep_launches("8d", got, evals, 1, sweeps)
+    _require_chains("8d", [state], samples)
+    stage_ms = {}
+    for stage in SWEEP_STAGES:  # one sweep of each stage alone, host clock
+        sweep = make_sweep(pop_res, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, stages=(stage,),
+                           diagnostic=True, row_batch=LONG_ROW_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(torch.Generator(device=dev).manual_seed(SEED + 1), state, False, 1.0)
+        torch.cuda.synchronize()
+        stage_ms[stage] = 1e3 * (time.perf_counter() - t0)
+    log("8d: one sweep of each stage alone, ms: " + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+        + f" [{card}]")
+    del data, state, samples
+
+    # (e) card float32 against CPU float64, streamed, at the truth (where the
+    # gradient is far from 0): the full T if the CPU takes under 60 s, else
+    # the first two blocks
+    T_cmp = 2 * C
+    cpu = Population(spec, device="cpu", dtype=torch.float64, time_chunk=C)
+    p64 = {k: v.detach().cpu().double() for k, v in true.items()}
+    t0 = time.perf_counter()
+    cpu_val, cpu_grad = _grads(cpu, p64, cpu.prepare_data(S[:T_cmp].cpu().double(), stim=stim[:T_cmp],
+                                                         materialize_design=False))
+    t_cpu = time.perf_counter() - t0
+    projected = t_cpu * T_LONG / T_cmp
+    if projected < 60.0:
+        T_cmp = T_LONG
+        cpu_val, cpu_grad = _grads(cpu, p64, cpu.prepare_data(S.cpu().double(), stim=stim,
+                                                             materialize_design=False))
+        log(f"8e: the full T on the CPU (two blocks took {t_cpu:.1f} s, the full T projected {projected:.1f} s)")
+    else:
+        log(f"8e: cut to the first two blocks, T={T_cmp}: the CPU took {t_cpu:.1f} s for them, the full "
+            f"T={T_LONG} projected {projected:.1f} s (over 60 s)")
+    gpu_val, gpu_grad = _grads(pop_s, true, pop_s.prepare_data(S[:T_cmp], stim=stim[:T_cmp],
+                                                             materialize_design=False))
+    err_v = abs(gpu_val - cpu_val) / abs(cpu_val)
+    err_g = {k: float(torch.linalg.norm(gpu_grad[k] - cpu_grad[k]) / torch.linalg.norm(cpu_grad[k]))
+             for k in cpu_grad}
+    log(f"8e: card f32 vs CPU f64, streamed log-joint at the truth over T={T_cmp}: {gpu_val:.3f} vs "
+        f"{cpu_val:.3f}, rel {err_v:.3e}; gradient rel-L2 " + ", ".join(f"{k} {e:.2e}" for k, e in err_g.items()))
+    require(err_v <= 1e-5, f"8e: log-joint rel err {err_v}")
+    require(max(err_g.values()) <= 1e-4, f"8e: gradient rel-L2 errors {err_g}")
+    log(f"phase 8: {time.perf_counter() - t_phase:.2f} s; launches on its paths {launches}")
+    return launches
+
+
+# --- phase 9 ----------------------------------------------------------------
+
+N_HARNESS, T_HARNESS_SEC = 27, 60.0  # the flagship's width, 60 s at 1 ms
+HARNESS_WARMUP, HARNESS_SAMPLES = 40, 20  # 40: the least warmup with adaptation windows
+
+
+class _CountEvaluations:
+    """Counts every Population's log-likelihood evaluations while active
+    (the harness builds its own populations)."""
+
+    def __enter__(self):
+        self.evals = 0
+        self._orig = orig = Population.log_likelihood
+
+        def counted(pop, params, data):
+            self.evals += 1
+            return orig(pop, params, data)
+
+        Population.log_likelihood = counted
+        return self
+
+    def __exit__(self, *exc):
+        Population.log_likelihood = self._orig
+
+
+def _harness_path(label, run) -> dict:
+    """One harness path with the launch counts set to 0 just before it: every
+    likelihood evaluation must have launched K1 or K2, and both ran."""
+    kernels.LAUNCHES.update(fwd=0, vg=0)
+    t0 = time.perf_counter()
+    with _CountEvaluations() as counted:
+        run()
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    log(f"{label}: {time.perf_counter() - t0:.2f} s; likelihood evaluations {counted.evals}, launches {got}")
+    require(got["fwd"] > 0 and got["vg"] > 0, f"{label}: a kernel never launched: {got}")
+    require(got["fwd"] + got["vg"] == counted.evals,
+            f"{label}: {counted.evals} likelihood evaluations against launches {got}")
+    return got
+
+
+def harness_phase(dev, card) -> dict:
+    """Phase 9, in a temporary directory. Returns the launches of fit_rgc and
+    the cli map and mcmc."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as work:
+        return _harness(dev, card, work)
+
+
+def _harness(dev, card, work) -> dict:
+    from theano_pyglm_torch import cli
+    from theano_pyglm_torch.scripts import fit_rgc
+    from theano_pyglm_torch.utils.binning import bin_spikes, native_available
+    from theano_pyglm_torch.utils.io import load_results
+    from theano_pyglm_torch.utils.rgc import load_rgc_mat, save_rgc_fixture_mat
+
+    t_phase = time.perf_counter()
+    fixture = os.path.join(work, "rgc_fixture.mat")
+    t0 = time.perf_counter()
+    save_rgc_fixture_mat(fixture, N=N_HARNESS, T_sec=T_HARNESS_SEC, seed=SEED, device=dev)
+    rec = load_rgc_mat(fixture)
+    T_ = int(round(rec["T_sec"] / DT))
+    native = bin_spikes(rec["times"], rec["neurons"], T_, DT, rec["N"])
+    plain = bin_spikes(rec["times"], rec["neurons"], T_, DT, rec["N"], use_native=False)
+    log(f"9: fixture N={rec['N']}, {T_HARNESS_SEC:.0f} s: {len(rec['times'])} events in "
+        f"{time.perf_counter() - t0:.2f} s; native binner built {native_available()}, "
+        f"native == numpy: {np.array_equal(native, plain)}")
+    require(native_available() and np.array_equal(native, plain), "9: the native binner differs from numpy")
+
+    # fit_rgc trains on the first 80 % of the recording: the phase's one new kernel shape
+    check_kernels(dev, int(0.8 * T_), N_HARNESS, "9 fit_rgc training", card)
+    rgc_dir = os.path.join(work, "rgc")
+    launches = _harness_path("9 fit_rgc", lambda: fit_rgc.main([
+        "--dataFile", fixture, "--resultsDir", rgc_dir, "--n_samples", str(HARNESS_SAMPLES),
+        "--n_warmup", str(HARNESS_WARMUP), "--seed", str(SEED)]))
+    with open(os.path.join(rgc_dir, "rgc_fit_report.json")) as f:
+        report = json.load(f)
+    numbers = [report["map"][k] for k in ("log_joint_train", "heldout_loglik", "ks_mean")]
+    numbers += [report["mcmc"][k] for k in ("heldout_predictive_loglik", "ks_mean_posterior_rate")]
+    log(f"9 fit_rgc report: MAP {report['map']['log_joint_train']:.3f} in {report['map']['iters']} iterations, "
+        f"held-out {report['map']['heldout_loglik']:.3f}, KS {report['map']['ks_mean']:.4f} (null "
+        f"{report['map']['ks_null_mean']:.4f}); MCMC predictive {report['mcmc']['heldout_predictive_loglik']:.3f}, "
+        f"glm accept {report['mcmc']['accept_rate_glm']} [{card}]")
+    require(all(math.isfinite(v) for v in numbers), f"9: non-finite values in the fit_rgc report {numbers}")
+    require(os.path.exists(os.path.join(rgc_dir, "rgc_fit_params.npz")), "9: fit_rgc wrote no parameters")
+
+    cli_dir = os.path.join(work, "cli")
+    flags = ["--model", "sparse_weighted_model", "-r", cli_dir, "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    cli.main(["generate", "-N", str(N_HARNESS), "-T", str(T_HARNESS_SEC), *flags])
+    log(f"9 cli generate: {time.perf_counter() - t0:.2f} s")
+    data_file = os.path.join(cli_dir, "synth_data.npz")
+    launches = _add(launches, _harness_path("9 cli map", lambda: cli.main(["map", "-d", data_file, *flags])))
+    launches = _add(launches, _harness_path("9 cli mcmc", lambda: cli.main([
+        "mcmc", "-d", data_file, "--n_samples", str(HARNESS_SAMPLES), "--n_warmup", str(HARNESS_WARMUP), *flags])))
+    outputs = ["synth_data.npz", "map_results.npz", "mcmc_samples.npz", "mcmc_metrics.jsonl"]
+    try:
+        import matplotlib  # noqa: F401  (the figure is drawn where matplotlib is installed)
+
+        outputs.append("map_results.png")
+    except ImportError:
+        log("9: matplotlib is not installed here: the cli skips its figure, map_results.png")
+    for name in outputs:
+        require(os.path.getsize(os.path.join(cli_dir, name)) > 0, f"9: the cli wrote no {name}")
+    res = load_results(os.path.join(cli_dir, "mcmc_samples.npz"))
+    require(all(np.isfinite(v).all() for v in res["samples"].values()), "9: non-finite cli samples")
+    require(res["samples"]["W"].shape == (HARNESS_SAMPLES, N_HARNESS, N_HARNESS), "9: cli samples misshapen")
+    log(f"phase 9: {time.perf_counter() - t_phase:.2f} s; launches on its paths {launches}")
+    return launches
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = setup()
     dev = torch.device("cuda", torch.cuda.current_device())
     one = torch.zeros(1, device=dev)
@@ -1248,6 +1567,13 @@ def main() -> None:
     variant_launches = variants_phase(dev, card, sl)
     launches = {k: launches[k] + variant_launches[k] for k in launches}
 
+    del sl
+    torch.cuda.empty_cache()
+    launches = _add(launches, long_recording_phase(dev, card))
+    torch.cuda.empty_cache()
+    launches = _add(launches, harness_phase(dev, card))
+
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included [{card}]")
     src = os.path.relpath(SOURCE, REPO)
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",
                 "vg": "theano_pyglm_tpu/ops/pallas_kernels.py:100"}

@@ -242,19 +242,28 @@ def test_launch_plan_takes_every_shape_the_first_version_took(N):
             assert plan.grid_y == (-(-kernels.du_tiles(NB, N) // kernels.THREADS) if grad else 1)
 
 
-def _largest_nb(N):
+def _largest_nb(N, one_group=False):
+    """The largest NB the wrapper takes at N: in column groups of 8 (or of
+    N, where N < 8), or with all N columns in one group."""
+    W = N if one_group else min(N, 8)
     nb = 1
-    while kernels._smem_bytes(nb + 1, N, 4) <= kernels.SMEM_LIMIT:
+    while kernels._smem_bytes(nb + 1, W, 4) <= kernels.SMEM_LIMIT:
         nb += 1
     return nb
 
 
 def test_launch_plan_raises_beyond_the_limit():
+    """The raise is left only where not even a column group of 8 fits at a
+    4-bin tile; one NB past what a single group takes plans groups."""
     for N in (1, 27):
         nb = _largest_nb(N)
         kernels.launch_plan(100, nb, N, H100_SMS, True)
         with pytest.raises(ValueError, match="shared memory"):
             kernels.launch_plan(100, nb + 1, N, H100_SMS, True)
+    nb1 = _largest_nb(27, one_group=True)
+    assert kernels.launch_plan(100, nb1, 27, H100_SMS, True).groups == 1
+    plan = kernels.launch_plan(100, nb1 + 1, 27, H100_SMS, True)
+    assert plan.groups > 1 and plan.smem_bytes <= kernels.SMEM_LIMIT
     with pytest.raises(ValueError):
         kernels.launch_plan(0, 135, 27, H100_SMS, True)
 
@@ -292,13 +301,17 @@ def _check_against_reference(x, u, ir, s):
         (1001, 5, 1, 0),  # N=1: one 8-neuron n-tile, mostly padding
         (2000, 25, 5, 20),  # N=5, not a multiple of the 7-neuron dU micro-tile
         (1500, 77, 9, 0),  # odd NB
-        (300, "largest", 27, 0),  # the largest NB·N the wrapper takes: dU split over grid_y
+        (300, "largest", 27, 0),  # the largest NB·N the wrapper takes: 4 column groups, dU over grid_y
+        (300, "one_group", 27, 0),  # the largest NB·N in one group: dU split over grid_y
+        (2001, 460, 92, 20),  # N ≥ 89 at NB = 5N: two column groups of 48 and 44
+        (10_176, 500, 100, 50),  # the long recording's last block: groups of 56 and 44
+        (1003, 640, 128, 0),  # four groups of 32
     ],
 )
 def test_kernels_match_reference_on_card(cuda, T, NB, N, clip_bins):
     torch.backends.cuda.matmul.allow_tf32 = False
-    if NB == "largest":
-        NB = _largest_nb(N)
+    if NB in ("largest", "one_group"):
+        NB = _largest_nb(N, one_group=NB == "one_group")
     arrays = _inputs(T, NB, N, i_shift=-3.0 if T > 1000 else 1.0, clip_bins=clip_bins)
     before = dict(kernels.LAUNCHES)
     _check_against_reference(*_torch(*arrays, device=cuda))
@@ -320,6 +333,20 @@ def test_kernels_are_deterministic_on_card(cuda):
         assert torch.equal(x, y)
     assert torch.equal(fused_ll_value(*ops, DT), fused_ll_value(*ops, DT))
     assert kernels.LAUNCHES == {"fwd": before["fwd"] + 2, "vg": before["vg"] + 3}
+
+
+@pytest.mark.cuda
+def test_column_groups_repeat_bit_for_bit_on_card(cuda):
+    """N=100 in two column groups: one launch per call and the same bits
+    every call (the groups' values are added in group order)."""
+    ops = _torch(*_inputs(10_176, 500, 100, i_shift=-3.0), device=cuda)
+    assert kernels.launch_plan(10_176, 500, 100, kernels._sm_count(cuda.index or 0), True).groups > 1
+    before = dict(kernels.LAUNCHES)
+    a, b = fused_ll_value_and_grad(*ops, DT), fused_ll_value_and_grad(*ops, DT)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(fused_ll_value(*ops, DT), fused_ll_value(*ops, DT))
+    assert kernels.LAUNCHES == {"fwd": before["fwd"] + 2, "vg": before["vg"] + 2}
 
 
 @pytest.mark.cuda
@@ -345,3 +372,23 @@ def test_population_on_card_matches_cpu(cuda):
     for k in g_cpu:
         err = float(torch.linalg.norm(g_gpu[k] - g_cpu[k]) / torch.linalg.norm(g_cpu[k]))
         assert err <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_row_batches_replayed_as_a_cuda_graph_give_the_same_update(cuda, monkeypatch):
+    """On the card the collapsed adjacency stage replays its full row batches
+    after the first as a CUDA graph (N=9, two rows a batch: one eager, three
+    replayed, one ragged): the same A and W as every batch run eagerly, bit
+    for bit."""
+    from theano_pyglm_torch.inference import gibbs
+
+    pop = pt.Population(pt.make_model("sparse_weighted_model", 9, bkgd={"type": "none"}), device=cuda)
+    p = pop.sample(torch.Generator(device=cuda).manual_seed(0))
+    S = torch.poisson(torch.full((3000, 9), 0.02, device=cuda), generator=torch.Generator(device=cuda).manual_seed(1))
+    d = pop.prepare_data(S)
+    out = []
+    for graphed in (False, True):
+        monkeypatch.setattr(gibbs, "GRAPH_ROW_BATCHES", graphed)
+        out.append(gibbs.update_adjacency_collapsed(torch.Generator(device=cuda).manual_seed(2), pop, p, d,
+                                                    row_batch=2))
+    assert torch.equal(out[0]["A"], out[1]["A"]) and torch.equal(out[0]["W"], out[1]["W"])

@@ -279,3 +279,29 @@ def test_edge_probabilities_match_jax_on_jax_spikes():
     assert set(diag_t) == set(diag_j) | {"accept_rate_adjacency"}
     for k in diag_j:
         assert np.isfinite(diag_t[k])
+
+
+def test_fixed_graph_leaves_w_frozen_as_the_reference_does():
+    """A fault of the reference, kept on purpose in both packages: under a
+    fixed-A graph (simple_weighted_model) W never moves, because the
+    birth-death move returns at once when A is fixed (JAX gibbs.py:208-209,
+    the port's update_adjacency_collapsed) and W is in no HMC block. This
+    test documents the behaviour; it does not endorse it (ROADMAP.md,
+    queue 3)."""
+    import theano_pyglm_torch as pt
+
+    pop = pt.Population(tpu.make_model("simple_weighted_model", 3), device="cpu", dtype=torch.float64)
+    params = pop.sample(torch.Generator().manual_seed(0))
+    S = np.random.RandomState(0).poisson(0.05, (800, 3)).astype(float)
+    stim = np.random.RandomState(1).randn(800, 1)
+    data = pop.prepare_data(S, stim=stim)
+    assert pop.graph.fixed_A
+    samples, _, state = gibbs_sample(pop, data, torch.Generator().manual_seed(1), n_samples=5,
+                                     n_warmup=5, init_params=params)
+    W0 = params["W"].numpy()
+    assert samples["W"].shape == (5, 3, 3)
+    for w in samples["W"]:
+        np.testing.assert_array_equal(w, W0)
+    np.testing.assert_array_equal(state["params"]["W"].numpy(), W0)
+    # the sampler does run: the impulse weights move
+    assert not np.array_equal(samples["w_ir"][-1], params["w_ir"].numpy())

@@ -150,12 +150,8 @@ def test_params_from_numpy_defaults_to_the_card():
 
 
 def test_unported_options_raise():
-    spec = pt.make_model("sparse_weighted_model", 2, bkgd={"type": "none"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Population(spec, device="cpu", time_chunk=128)
-    pop = pt.Population(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pop.prepare_data(np.zeros((10, 2)), materialize_design=False)
+    """(``time_chunk`` and the streamed design are ported; their tests are
+    in test_torch_streaming.py.)"""
     with pytest.raises(ValueError, match="stim"):
         pt.Population(pt.make_model("standard_glm", 2), device="cpu").prepare_data(np.zeros((10, 2)))
     with pytest.raises(ValueError, match="available"):

@@ -76,6 +76,10 @@ def test_load_data_matches_jax(tmp_path):
 
 
 def test_cli_flags_match_jax():
+    """The reference's flags as JAX parses them, plus the port's --device
+    (default cuda)."""
     argv = ["--dataFile", "x.npz", "-N", "5", "--T", "2.5", "--resume", "--checkpoint_every", "10", "--xv"]
-    got, want = vars(io_t.parse_cmd_line_args(argv)), vars(io_j.parse_cmd_line_args(argv))
-    assert got == want and vars(io_t.parse_cmd_line_args([])) == vars(io_j.parse_cmd_line_args([]))
+    for args in (argv, []):
+        got, want = vars(io_t.parse_cmd_line_args(args)), vars(io_j.parse_cmd_line_args(args))
+        assert got.pop("device") == "cuda" and got == want
+    assert io_t.parse_cmd_line_args(["--device", "cpu"]).device == "cpu"

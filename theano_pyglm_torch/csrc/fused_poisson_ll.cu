@@ -19,7 +19,10 @@
 // or written once: K1 moves 45.4 MB (X_f 32.4, I_rest and S 6.5 each) in
 // 13.5 us and does 0.437 GFLOP in 6.5 us, so HBM bounds it at 13.5 us. K2
 // adds dI_rest (6.5 MB) and dU: 51.9 MB in 15.5 us against 0.875 GFLOP in
-// 13.1 us, HBM-bound with the float32 FMA pipe close behind.
+// 13.1 us, HBM-bound with the float32 FMA pipe close behind. At the long
+// recording's shape T=600,000, NB=500, N=100 the operations bound both:
+// K1 60 GFLOP in 0.90 ms, K2 120 GFLOP in 1.79 ms (their bytes, 1.68 and
+// 1.92 GB, take 0.50 and 0.57 ms).
 //
 // The first version (one thread per (bin, neuron) current and per dU entry)
 // read both operands of every FMA from shared memory; copied each 64-bin
@@ -45,35 +48,57 @@
 //   thread owns a 9 (NB) × 7 (N) micro-tile (135 = 15·9 and 27 ≤ 4·7 waste
 //   little at the flagship shape), and the 4 threads that share one each
 //   take every fourth bin; the four sums are joined once, at the end, in a
-//   fixed order. A 3xTF32 mma version of this product ran over twice as
-//   slow: its B operand changes with every n-tile, so each product paid for
-//   its own split and selects. dU is written once per block; where its
-//   micro-tiles outnumber 256 threads, blockIdx.y splits them, each y
-//   recomputes the currents it needs, and only y = 0 writes dI_rest and the
-//   value. wgmma is not used: at N=27 its 64-row tiles would mostly multiply
+//   fixed order. At most 32 threads share a micro-tile: uncapped, the one
+//   micro-tile of NB·N = 5 had 256 sharers, joined by one thread in
+//   series, and K2 took 60 us there (32 us capped). A 3xTF32 mma version
+//   of this product ran over twice as slow: its B operand changes with
+//   every n-tile, so each product paid for its own split and selects. dU
+//   is written once per block; where its micro-tiles outnumber 256
+//   threads, blockIdx.y splits them, each y recomputes the currents it
+//   needs, and only y = 0 writes dI_rest and the value. wgmma is not used: at N=27 its 64-row tiles would mostly multiply
 //   padding, and its TF32 form wants both operands K-major, which Xᵀ·dI
 //   does not give without a transpose.
-// - Asynchronous double-buffered copies: a tile's X_f, I_rest and S are
-//   three contiguous spans (tile_t is a multiple of 4, so each starts on 16
-//   bytes), each moved by one TMA bulk copy (cp.async.bulk, completing on the
-//   stage's mbarrier) into the other stage while the current tile computes.
+// - Asynchronous double-buffered copies: with one column group a tile's
+//   X_f, I_rest and S are three contiguous spans (tile_t is a multiple of
+//   4, so each starts on 16 bytes), each moved by one TMA bulk copy
+//   (cp.async.bulk, completing on the stage's mbarrier) into the other
+//   stage while the current tile computes.
 //   K2 overwrites the tile's I_rest with dI in place and writes it out
 //   coalesced.
 // - The wrapper (ops/kernels.py, launch_plan) picks the tile so that every
 //   block gets the same number of tiles, give or take one (60,000 bins: 518
 //   tiles of 116 over 132 blocks, the longest block 2 % above the mean).
+// - Column groups. A block keeps U in shared memory, and all of U fits
+//   only up to NB·N of about 8,000 words (NB = 5N: N ≤ 88). Column n of I,
+//   dI_rest and dU depends on column n of U alone, so past that the N
+//   columns are cut into the least number G of groups of W columns (W a
+//   multiple of 8, the last group narrower) whose U slice and two 4-bin
+//   stages fit (NB = 5N: G = 2 for 89 ≤ N ≤ 112, N = 100 in groups of 56
+//   and 44). blockIdx.y = group·grid_y + dU slice; a block holds its
+//   group's columns of U, the tile's whole X_f rows, and the group's I_rest
+//   and S columns (rows N apart in memory, so cp.async moves them a word at
+//   a time). G = 1 at every smaller shape, where the launch is the one
+//   before groups. The cost: X_f is read once per group, G·|X_f| bytes
+//   where the L2 does not serve the groups that work on one tile at about
+//   the same time, and the forward product of a 16-bin tile gives a block
+//   two units of work for eight warps (PERF.md §6).
 // - One launch, deterministic. Each block writes its partial row (dU and
-//   ll) to scratch; the grid, launched cooperatively so that all its blocks
-//   are resident, meets at a barrier of two integer words; then every block
-//   sums a slice of the columns over the rows in a fixed order. No float
-//   atomics: repeated runs give identical bits.
+//   each group's ll) to scratch; the grid, launched cooperatively so that
+//   all its blocks are resident, meets at a barrier of two integer words;
+//   then every block sums a slice of the columns over the rows in a fixed
+//   order, and with G > 1, after a second barrier, one thread adds the
+//   groups' ll in group order. No float atomics: repeated runs give
+//   identical bits.
 // - The host sets the shared-memory attribute once per (kernel, device,
 //   size) and calls cudaSetDevice only when the device is not current.
 //
 // What limits it (PERF.md §6, tools/kernel_probe.py): per tile, the 3xTF32
 // products at the rate mma.sync gets on Hopper and K2's FMA product take
 // longer than the tile's copies, and the prologue, the first tile's copy and
-// the cross-block sums cost a fixed ~8 us a call.
+// the cross-block sums cost a fixed ~8 us a call. In column groups the
+// forward product dominates: at N=100 a 16-bin tile gives a block 2
+// forward units for 8 warps, and K2's two dU slices each redo them
+// (without the forward, K2 takes 5.0 of its 14.8 ms at T=600,000).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -89,19 +114,22 @@ constexpr int kThreads = 256;  // ops/kernels.py THREADS
 constexpr int kWarps = kThreads / 32;
 constexpr int kScratch = kThreads * 8;  // words for joining partial sums (≥ kThreads · kMtN)
 constexpr int kMtM = 9, kMtN = 7;  // K2's dU micro-tile (ops/kernels.py DU_TILE): 135 = 15·9, 28 = 4·7
+constexpr int kMaxSlices = 32;  // threads that share one dU micro-tile, at most
 constexpr int kMaxDevices = 64;
 
 __host__ __device__ constexpr int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
 
-// Shared-memory layout, in 32-bit words, mirrored by ops/kernels.py:
-//   U               (ceil8(NB) × BS, zero-padded)
+// Shared-memory layout, in 32-bit words, mirrored by ops/kernels.py, for a
+// column group of W neurons (W = N when one group holds them all):
+//   U[:, group]     (ceil8(NB) × BS, zero-padded)
 //   stage 0, 1      X_f (RT × NB, RT = ceil16(tile_t): the tile's rows as
-//                   they lie in memory), I_rest (NS; K2 turns it into dI), S (NS)
+//                   they lie in memory), I_rest (NS; K2 turns it into dI), S (NS),
+//                   the last two the group's columns, rows packed
 //   scratch         (kScratch)
 // Reads past a row's NB columns land in the next row (or, past the last, in
 // I_rest) and meet zero rows of U or are discarded. The B-operand stride
 // BS ≡ 8 (mod 16) makes U's fragment reads conflict-free. NS leaves 8 words
-// after a tile's rows·N for the dU reads past its last neuron.
+// after a tile's rows·W for the dU reads past its last neuron.
 __host__ __device__ constexpr int b_stride(int N) {
     return (ceil_to(N, 8) % 16) ? ceil_to(N, 8) : ceil_to(N, 8) + 8;
 }
@@ -257,21 +285,62 @@ __device__ void grid_barrier(unsigned* bar) {
     __syncthreads();
 }
 
-// part row b (one per blockIdx.x): K1 [ll, pad]; K2 [dU (NB·N row-major), ll, pad].
-// bar: 2 words, zeroed before the first call.
+// out[c] = Σ over the grid_x partial rows of part[·][c], for the float4
+// columns c < w4 that this block owns (a slice of them per block), in a
+// fixed order.
+__device__ void sum_columns(const float* part, float* out, int w4, float* s_join) {
+    const int tid = threadIdx.x;
+    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
+    const int c_lo = (int)((long long)b * w4 / nb);
+    const int C = (int)((long long)(b + 1) * w4 / nb) - c_lo;
+    const float4* p4 = reinterpret_cast<const float4*>(part) + c_lo;
+    float4* out4 = reinterpret_cast<float4*>(out) + c_lo;
+    if (C == 0) return;
+    if (2 * C > kThreads) {  // few blocks, wide rows: a column a thread
+        sum_rows(out4, p4, w4, 0, gridDim.x, C);
+        return;
+    }
+    if (C == 1) {  // the rows over all threads, then a fixed tree
+        sum_rows(out4, p4, w4, 0, gridDim.x, 1);
+        return;
+    }
+    // P row phases a column, then the phases in order
+    const int P = kThreads / C, cl = tid % C, ph = tid / C;
+    float4* red = reinterpret_cast<float4*>(s_join);
+    if (ph < P) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int r = ph; r < (int)gridDim.x; r += P) add4(acc, __ldcg(p4 + (size_t)r * w4 + cl));
+        red[ph * C + cl] = acc;
+    }
+    __syncthreads();
+    if (tid < C) {
+        float4 acc = red[tid];
+        for (int q = 1; q < P; ++q) add4(acc, red[q * C + tid]);
+        out4[tid] = acc;
+    }
+}
+
+// The grid is (grid_x, grid_y · G): blockIdx.y = group · grid_y + dU slice.
+// part row b (one per blockIdx.x): K1 [ll of each group, pad]; K2 [dU (NB·N
+// row-major), ll of each group, pad]. bar: 2 words, zeroed before the first call.
 template <bool kGrad>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
                const float* __restrict__ i_rest, const float* __restrict__ s,
                float* __restrict__ d_irest, float* __restrict__ part, float* __restrict__ out,
-               unsigned* __restrict__ bar, int T, int NB, int N, int tile_t, float dt,
+               unsigned* __restrict__ bar, int T, int NB, int N, int W, int tile_t, float dt,
                float log_dt) {
     extern __shared__ __align__(16) float smem[];
     __shared__ __align__(8) uint64_t s_bar[2];  // a stage's bulk copies have landed
+    const int G = (N + W - 1) / W, YS = gridDim.y / G;
+    const int grp = blockIdx.y / YS, ys = blockIdx.y - grp * YS;
+    const int c0 = grp * W, nc = min(W, N - c0);  // this block's columns of U, I_rest, S
+    const bool whole = nc == N;                   // one group: I_rest and S tiles are contiguous
     const int KP = ceil_to(NB, 8), RT = ceil_to(tile_t, 16);
-    const int BS = b_stride(N), NS = n_span(N, tile_t);
-    const int SW = stage_words(NB, N, tile_t);
-    const int NT = (N + 7) >> 3;   // n-tiles of 8 neurons
+    const int BS = b_stride(W), NS = n_span(W, tile_t);
+    const int SW = stage_words(NB, W, tile_t);
+    const int NT = (nc + 7) >> 3;  // n-tiles of 8 neurons
     const int NG = (NT + 3) >> 2;  // forward n-groups of 4 n-tiles
     float* s_u = smem;
     float* s_stage = s_u + (size_t)KP * BS;
@@ -279,7 +348,7 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int n_tiles = (T + tile_t - 1) / tile_t;
-    const bool lead_y = blockIdx.y == 0;
+    const bool lead_y = ys == 0;
 
     // Zero U and both stages (pads stay zero; words never copied stay
     // finite), before any copy lands in them.
@@ -295,16 +364,20 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
     }
     __syncthreads();
 
-    // A tile's X_f, I_rest and S are three contiguous spans: thread 0 moves
-    // each with one TMA bulk copy onto the stage's mbarrier, and the threads
-    // copy what a bulk copy cannot take (a tail under 16 bytes, or a whole
-    // span whose source is not 16-byte aligned) with cp.async, in one group.
+    // A tile's X_f is one contiguous span, and so are its I_rest and S when
+    // one group holds all N columns: thread 0 moves each span with one TMA
+    // bulk copy onto the stage's mbarrier, and the threads copy what a bulk
+    // copy cannot take (a tail under 16 bytes, or a whole span whose source
+    // is not 16-byte aligned) with cp.async, in one group. A column group's
+    // I_rest and S rows lie N apart: cp.async takes them a word at a time.
     auto issue = [&](int tile, int st) {
         const int t0 = tile * tile_t, rows = min(tile_t, T - t0);
         float* dst[3] = {s_stage + (size_t)st * SW, s_stage + (size_t)st * SW + RT * NB,
                          s_stage + (size_t)st * SW + RT * NB + NS};
-        const float* src[3] = {x_f + (size_t)t0 * NB, i_rest + (size_t)t0 * N, s + (size_t)t0 * N};
-        const int n[3] = {rows * NB, rows * N, rows * N};
+        const float* src[3] = {x_f + (size_t)t0 * NB, i_rest + (size_t)t0 * N + c0,
+                               s + (size_t)t0 * N + c0};
+        const int span = whole ? rows * N : 0, strided = whole ? 0 : rows * nc;
+        const int n[3] = {rows * NB, span, span};
         uint32_t bytes[3], total = 0;
         for (int q = 0; q < 3; ++q) total += bytes[q] = bulk_bytes(src[q], n[q]);
         if (tid == 0) {
@@ -317,11 +390,17 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
         }
         for (int q = 0; q < 3; ++q)
             for (int i = (int)(bytes[q] >> 2) + tid; i < n[q]; i += kThreads) cp_async4(dst[q] + i, src[q] + i);
+        for (int i = tid; i < strided; i += kThreads) {
+            const int r = i / nc;
+            const size_t o = (size_t)r * N + (i - r * nc);
+            cp_async4(dst[1] + i, src[1] + o);
+            cp_async4(dst[2] + i, src[2] + o);
+        }
     };
-    // U into rows of BS words, 4 bytes a thread
-    for (int e = tid; e < NB * N; e += kThreads) {
-        const int m = e / N;
-        cp_async4(s_u + m * BS + (e - m * N), u + e);
+    // the group's columns of U into rows of BS words, 4 bytes a thread
+    for (int e = tid; e < NB * nc; e += kThreads) {
+        const int m = e / nc;
+        cp_async4(s_u + m * BS + (e - m * nc), u + (size_t)m * N + c0 + (e - m * nc));
     }
     cp_async_commit();
     issue(blockIdx.x, 0);
@@ -330,16 +409,18 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
     // K2's dU: kMtM × kMtN micro-tiles in registers for the whole kernel,
     // float32 FMA. A micro-tile holds rows mg, mg + MG, ... of dU (so that a
     // warp's X_f reads fall in consecutive banks) and columns n0d, n0d + 1, ...
-    // n_slices = THREADS / (this y-slice's micro-tiles) threads share one
-    // micro-tile, each taking every n_slices-th bin of a tile; their sums are
-    // joined once, at the end, in a fixed order.
-    const int ngd = (N + kMtN - 1) / kMtN, MG = (NB + kMtM - 1) / kMtM;
-    const int y_items = kGrad ? min(kThreads, MG * ngd - (int)blockIdx.y * kThreads) : 0;
-    const int n_slices = y_items > 0 ? kThreads / y_items : 0;
+    // n_slices = THREADS / (this y-slice's micro-tiles) threads, at most
+    // kMaxSlices, share one micro-tile, each taking every n_slices-th bin of
+    // a tile; their sums are joined once, at the end, in a fixed order. (The
+    // cap bounds the join: uncapped, one micro-tile at NB·N = 5 took 256
+    // slices, summed by one thread.)
+    const int ngd = (nc + kMtN - 1) / kMtN, MG = (NB + kMtM - 1) / kMtM;
+    const int y_items = kGrad ? min(kThreads, MG * ngd - ys * kThreads) : 0;
+    const int n_slices = y_items > 0 ? min(kThreads / y_items, kMaxSlices) : 0;
     const int slice = y_items > 0 ? tid / y_items : 0;
     const int item_l = tid - slice * y_items;
     const bool owns_du = slice < n_slices;
-    const int item = blockIdx.y * kThreads + item_l;
+    const int item = ys * kThreads + item_l;
     const int mg = owns_du ? item / ngd : 0, n0d = owns_du ? (item % ngd) * kMtN : 0;
     float du[kMtM][kMtN];
 #pragma unroll
@@ -347,7 +428,11 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
 #pragma unroll
         for (int j = 0; j < kMtN; ++j) du[i][j] = 0.f;
 
-    float ll = 0.f;
+    // the value: each forward unit's 16 terms a thread summed into part,
+    // the parts added into ll with Kahan's compensation (ll_c). Added in
+    // plain sequence, at T=600,000 a thread's ~10,000 terms lost 2e-5 of
+    // the value in float32.
+    float ll = 0.f, ll_c = 0.f;
     int k = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
         const int next = tile + gridDim.x;
@@ -396,30 +481,39 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
 #pragma unroll
                 for (int j = 0; j < 4; ++j) mma_tf32(acc_lo[j], ab, bs[j][0], bs[j][1]);
             }
+            float part = 0.f;
 #pragma unroll
             for (int j = 0; j < 4; ++j)
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                     const int r = r0 + g + ((c >> 1) << 3), n = (nt0 + j) * 8 + 2 * t + (c & 1);
-                    if (r < rows && n < N) {  // the ragged tile, the padded neurons
-                        const int e = r * N + n;
+                    if (r < rows && n < nc) {  // the ragged tile, the padded neurons
+                        const int e = r * nc + n;
                         const float i_raw = sir[e] + (acc_hi[j][c] + acc_lo[j][c]);
                         const float I = fminf(fmaxf(i_raw, -EXP_CLIP), EXP_CLIP);
                         const float rate_dt = expf(I) * dt;
                         const float spikes = ssp[e];
-                        ll += spikes * (I + log_dt) - rate_dt;
+                        part += spikes * (I + log_dt) - rate_dt;
                         if (kGrad)  // the clip's gradient is 0 outside the active range
                             sir[e] = fabsf(i_raw) < EXP_CLIP ? spikes - rate_dt : 0.f;
                     }
                 }
+            const float y = part - ll_c, sum = ll + y;
+            ll_c = (sum - ll) - y;
+            ll = sum;
         }
 
         if (kGrad) {
             __syncthreads();  // the tile's dI is in shared memory
-            if (lead_y) copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
+            if (lead_y && whole) copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
+            if (lead_y && !whole)
+                for (int i = tid; i < rows * nc; i += kThreads) {
+                    const int r = i / nc;
+                    d_irest[(size_t)(t0 + r) * N + c0 + (i - r * nc)] = sir[i];
+                }
             if (owns_du) {
-                // X_f and dI rows lie NB and N apart, so each operand is a
-                // scalar read; rows past NB or columns past N read the next
+                // X_f and dI rows lie NB and nc apart, so each operand is a
+                // scalar read; rows past NB or columns past nc read the next
                 // row and land in discarded sums
                 const float* xm = sx + mg;
                 const float* dp = sir + n0d;
@@ -429,7 +523,7 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
 #pragma unroll
                     for (int i = 0; i < kMtM; ++i) xv[i] = xm[r * NB + i * MG];
 #pragma unroll
-                    for (int j = 0; j < kMtN; ++j) dv[j] = dp[r * N + j];
+                    for (int j = 0; j < kMtN; ++j) dv[j] = dp[r * nc + j];
 #pragma unroll
                     for (int i = 0; i < kMtM; ++i)
 #pragma unroll
@@ -440,8 +534,9 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
         __syncthreads();  // readers of this stage are done before it is refilled
     }
 
-    // -- this block's partial row, width ceil4(NB·N + 1) (K2) or 4 (K1)
-    const int width = kGrad ? NB * N + 1 : 1;
+    // -- this block's part of its partial row, width ceil4(NB·N + G) (K2) or
+    // ceil4(G) (K1)
+    const int ll_off = kGrad ? NB * N : 0, width = ll_off + G;
     const int w4 = ceil_to(width, 4) >> 2;
     float* row = part + (size_t)blockIdx.x * w4 * 4;
     if (kGrad) {
@@ -465,55 +560,40 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
             for (int i = 0; i < kMtM; ++i)
 #pragma unroll
                 for (int j = 0; j < kMtN; ++j)
-                    if (mg + i * MG < NB && n0d + j < N) row[(mg + i * MG) * N + n0d + j] = du[i][j];
+                    if (mg + i * MG < NB && n0d + j < nc)
+                        row[(mg + i * MG) * N + c0 + n0d + j] = du[i][j];
     }
     ll = block_sum(ll);
-    if (lead_y && tid == 0) row[width - 1] = ll;
+    if (lead_y && tid == 0) row[ll_off + grp] = ll;
 
     // -- after a grid barrier, every block sums a slice of the columns over
-    // the partial rows, in a fixed order
+    // the partial rows, in a fixed order; with column groups, after a second
+    // barrier one thread adds the groups' values in group order
     grid_barrier(bar);
-    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
-    const int c_lo = (int)((long long)b * w4 / nb);
-    const int C = (int)((long long)(b + 1) * w4 / nb) - c_lo;
-    const float4* p4 = reinterpret_cast<const float4*>(part) + c_lo;
-    float4* out4 = reinterpret_cast<float4*>(out) + c_lo;
-    if (C == 0) return;
-    if (2 * C > kThreads) {  // few blocks, wide rows: a column a thread
-        sum_rows(out4, p4, w4, 0, gridDim.x, C);
-        return;
-    }
-    if (C == 1) {  // the rows over all threads, then a fixed tree
-        sum_rows(out4, p4, w4, 0, gridDim.x, 1);
-        return;
-    }
-    // P row phases a column, then the phases in order
-    const int P = kThreads / C, cl = tid % C, ph = tid / C;
-    float4* red = reinterpret_cast<float4*>(s_join);
-    if (ph < P) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-        for (int r = ph; r < (int)gridDim.x; r += P) add4(acc, __ldcg(p4 + (size_t)r * w4 + cl));
-        red[ph * C + cl] = acc;
-    }
-    __syncthreads();
-    if (tid < C) {
-        float4 acc = red[tid];
-        for (int q = 1; q < P; ++q) add4(acc, red[q * C + tid]);
-        out4[tid] = acc;
+    sum_columns(part, out, w4, s_join);
+    if (G > 1) {
+        grid_barrier(bar);
+        if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+            float acc = 0.f;
+            for (int q = 0; q < G; ++q) acc += __ldcg(out + ll_off + q);
+            out[ll_off] = acc;
+        }
     }
 }
 
 template <bool kGrad>
 cudaError_t launch(const float* x_f, const float* u, const float* i_rest, const float* s,
                    float* d_irest, float* part, float* out, unsigned* bar, int T, int NB, int N,
-                   int tile_t, int grid_x, int grid_y, int smem_bytes, int device, float dt,
+                   int W, int tile_t, int grid_x, int grid_y, int smem_bytes, int device, float dt,
                    float log_dt, cudaStream_t stream) {
     static int attr_bytes[kMaxDevices];  // the shared-memory attribute set so far, per device
     if (device < 0 || device >= kMaxDevices || tile_t % 4 != 0) return cudaErrorInvalidValue;
-    if ((size_t)smem_bytes != smem_bytes_for(NB, N, tile_t)) return cudaErrorInvalidValue;
-    if (kGrad && grid_y * kThreads < ((NB + kMtM - 1) / kMtM) * ((N + kMtN - 1) / kMtN))
+    // a column group is all N columns, or whole n-tiles of 8
+    if (W < 1 || W > N || (W < N && W % 8 != 0)) return cudaErrorInvalidValue;
+    if ((size_t)smem_bytes != smem_bytes_for(NB, W, tile_t)) return cudaErrorInvalidValue;
+    if (kGrad ? grid_y * kThreads < ((NB + kMtM - 1) / kMtM) * ((W + kMtN - 1) / kMtN) : grid_y != 1)
         return cudaErrorInvalidValue;
+    const int G = (N + W - 1) / W;
     int current = -1;
     cudaError_t err = cudaGetDevice(&current);
     if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -527,30 +607,32 @@ cudaError_t launch(const float* x_f, const float* u, const float* i_rest, const 
     // cooperative: the runtime refuses a grid whose blocks cannot all be
     // resident at once, which the grid barrier needs
     void* args[] = {&x_f, &u, &i_rest, &s, &d_irest, &part, &out, &bar,
-                    &T, &NB, &N, &tile_t, &dt, &log_dt};
-    return cudaLaunchCooperativeKernel((const void*)fused_ll_tiles<kGrad>, dim3(grid_x, grid_y),
+                    &T, &NB, &N, &W, &tile_t, &dt, &log_dt};
+    return cudaLaunchCooperativeKernel((const void*)fused_ll_tiles<kGrad>, dim3(grid_x, grid_y * G),
                                        dim3(kThreads), args, (size_t)smem_bytes, stream);
 }
 
 }  // namespace
 
-// K1. out[0] = ll. part: (grid_x, 4) scratch, out: 4 floats; bar: 2 words,
-// zeroed before the first call on the stream.
+// K1. out[0] = ll. W: the columns of a group (N for one group), G = ceil(N / W);
+// part: (grid_x, ceil4(G)) scratch, out: ceil4(G) floats; grid_y = 1; bar:
+// 2 words, zeroed before the first call on the stream.
 extern "C" int fused_ll_fwd(const float* x_f, const float* u, const float* i_rest,
                             const float* s, float* part, float* out, unsigned* bar, int T, int NB,
-                            int N, int tile_t, int grid_x, int grid_y, int smem_bytes, int device,
-                            float dt, float log_dt, void* stream) {
-    return (int)launch<false>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, tile_t,
+                            int N, int W, int tile_t, int grid_x, int grid_y, int smem_bytes,
+                            int device, float dt, float log_dt, void* stream) {
+    return (int)launch<false>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, W, tile_t,
                               grid_x, grid_y, smem_bytes, device, dt, log_dt, (cudaStream_t)stream);
 }
 
 // K2. out[0 : NB·N] = dU (row-major (NB, N)), out[NB·N] = ll; d_irest (T, N).
-// part: (grid_x, ceil4(NB·N + 1)) scratch, out: ceil4(NB·N + 1) floats; bar as K1's.
+// grid_y: dU slices per group. part: (grid_x, ceil4(NB·N + G)) scratch, out:
+// ceil4(NB·N + G) floats; W and bar as K1's.
 extern "C" int fused_ll_vg(const float* x_f, const float* u, const float* i_rest,
                            const float* s, float* d_irest, float* part, float* out, unsigned* bar,
-                           int T, int NB, int N, int tile_t, int grid_x, int grid_y, int smem_bytes,
-                           int device, float dt, float log_dt, void* stream) {
-    return (int)launch<true>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, tile_t,
+                           int T, int NB, int N, int W, int tile_t, int grid_x, int grid_y,
+                           int smem_bytes, int device, float dt, float log_dt, void* stream) {
+    return (int)launch<true>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, W, tile_t,
                              grid_x, grid_y, smem_bytes, device, dt, log_dt, (cudaStream_t)stream);
 }
 

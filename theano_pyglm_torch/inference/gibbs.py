@@ -118,16 +118,75 @@ def _row_psi(pop, data, w_eff_n) -> torch.Tensor:
     return _psi_from_X(X, data.get("_X_imp_mean"), w_eff_n)
 
 
-def _map_rows(row_fn, args: tuple, row_batch):
+def _map_rows(row_fn, args: tuple, row_batch, graph: bool = False):
     """Run ``row_fn`` on all postsynaptic rows as one batch dimension
     (default), or on ``row_batch`` rows at a time (bounded memory for long
     recordings or large N). Every argument has rows as its leading
-    dimension; ``row_fn`` returns a tuple of such tensors."""
+    dimension; ``row_fn`` returns a tuple of such tensors.
+
+    ``graph``: on a CUDA device with more than one full batch, and with
+    ``GRAPH_ROW_BATCHES`` on, the full batches after the first replay a CUDA
+    graph of ``row_fn`` (see :func:`_replay_rows`). ``row_fn`` must then read
+    nothing on the host and keep the tensors it closes over alive."""
     if row_batch is None:
         return row_fn(*args)
     n, step = args[0].shape[0], int(row_batch)
-    parts = [row_fn(*(a[i : i + step] for a in args)) for i in range(0, n, step)]
+    if graph and GRAPH_ROW_BATCHES and args[0].is_cuda and n // step > 1:
+        parts = _replay_rows(row_fn, args, step)
+    else:
+        parts = [row_fn(*(a[i : i + step] for a in args)) for i in range(0, n, step)]
     return tuple(torch.cat(p, 0) for p in zip(*parts))
+
+
+# Replay the row batches of the collapsed adjacency stage as a CUDA graph.
+# Module-level so a probe can time the stage with and without it.
+GRAPH_ROW_BATCHES = True
+# Per device: the capture stream, and the last call's graph, whose memory
+# pool the next capture shares before the last graph is freed. (With a new
+# stream and pool per call, 50 sweeps at N=100 ran an 80 GB card out of
+# memory in private pools.)
+_GRAPH_STATE: dict = {}
+
+
+def _replay_rows(row_fn, args: tuple, step: int) -> list:
+    """The row batches of :func:`_map_rows` with the host's launch cost paid
+    twice a call instead of once a batch. A row update is hundreds of small
+    kernels per entry (the Newton fit, the MH step), so with a few rows a
+    batch it is bound by host launches (N=100, ``row_batch=4``: ~35,000
+    launches a batch). The first batch runs eagerly (it also initializes
+    whatever the kernels create lazily), is captured once on a side stream
+    from static copies of its inputs, and every later full batch copies its
+    rows into those inputs and replays the capture: the same kernels on the
+    same shapes. A ragged last batch runs eagerly. The capture shares the
+    previous call's memory pool, so the memory held does not grow with the
+    calls."""
+    n = args[0].shape[0]
+    full = n - n % step
+    parts = [row_fn(*(a[:step] for a in args))]
+    static = [a[:step].clone() for a in args]
+    dev = args[0].device
+    side, prev = _GRAPH_STATE.get(dev) or (torch.cuda.Stream(dev), None)
+    main = torch.cuda.current_stream(dev)
+    side.wait_stream(main)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        g.capture_begin(pool=None if prev is None else prev.pool())
+        try:
+            out = row_fn(*static)
+        finally:
+            g.capture_end()
+    if prev is not None:
+        prev.reset()
+    _GRAPH_STATE[dev] = (side, g)
+    main.wait_stream(side)
+    for i in range(step, full, step):
+        for s, a in zip(static, args):
+            s.copy_(a[i : i + step])
+        g.replay()
+        parts.append(tuple(o.clone() for o in out))
+    if full < n:
+        parts.append(row_fn(*(a[full:] for a in args)))
+    return parts
 
 
 def rest_current(pop, params, data) -> torch.Tensor:
@@ -383,6 +442,7 @@ def update_adjacency_collapsed(
         (params["A"], params["W"], w_eff_all, S.T.contiguous(), I_rest.T.contiguous(), MU, SIG,
          logit_prior, S_sub.T.contiguous(), I_rest_sub.T.contiguous(), u_a, u_mix, u_acc, z),
         row_batch,
+        graph=fast,  # the autograd branches are not captured
     )
     out = {**params, "A": A_new, "W": W_new}
     return (out, acc.mean()) if return_accept else out

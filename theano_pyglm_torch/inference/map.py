@@ -18,7 +18,6 @@ with λ chosen by held-out log-likelihood (:func:`cross_validate_lambda`).
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Sequence
 
 import numpy as np
@@ -48,13 +47,18 @@ def split_params(params: dict, keys: Sequence[str] = CONTINUOUS_KEYS):
     return opt, frozen
 
 
-def lbfgs_minimize(fun: Callable, x0: dict, max_iter: int = 500, tol: float = 1e-6):
+def lbfgs_minimize(fun: Callable, x0: dict, max_iter: int = 500, tol: float = 1e-6, window: int = 1):
     """Minimize ``fun`` (dict of tensors -> scalar tensor) with L-BFGS.
 
     One ``torch.optim.LBFGS`` iteration per step, so the convergence test of
     the JAX package applies between iterations: stop after ``max_iter``, or
-    from the third iteration on once the relative change in value is at most
-    ``tol``·(1 + |value|) or the gradient norm is at most ``tol``.
+    once the change in value over the last ``window`` iterations is at most
+    ``tol``·(1 + |value|) or the gradient norm is at most ``tol`` (tested
+    from iteration ``window`` + 1 on). ``window`` > 1 serves the
+    long-recording MAP (``scripts/stretch_streaming.py``: 40), which stops,
+    as the JAX script does between its 40-iteration slices, once a window of
+    iterations moved the value by less than ``tol``; every other caller
+    keeps the per-iteration test (``window`` = 1).
 
     Returns (x_opt as detached tensors, final value, n_iters).
     """
@@ -79,29 +83,31 @@ def lbfgs_minimize(fun: Callable, x0: dict, max_iter: int = 500, tol: float = 1e
         start.append((float(val.detach()), float(gnorm)))
         return val
 
-    prev_val = math.inf
+    history = []  # the value at the start of each iteration
     iters = 0
     while iters < max_iter:
         start.clear()
         opt.step(closure)  # its first evaluation is at the iterate it starts from
         val, gnorm = start[0]
+        history.append(val)
         iters += 1
-        progress = abs(val - prev_val) > tol * (1.0 + abs(val))
-        if iters >= 2 and not (progress and gnorm > tol):
-            break
-        prev_val = val
+        if len(history) > window:
+            progress = abs(val - history[-1 - window]) > tol * (1.0 + abs(val))
+            if not (progress and gnorm > tol):
+                break
     x = {k: v.detach() for k, v in x.items()}
     with torch.no_grad():
         final = fun(x)
     return x, final, iters
 
 
-def map_fit(pop, data, init_params, max_iter: int = 500):
+def map_fit(pop, data, init_params, max_iter: int = 500, tol: float = 1e-6, window: int = 1):
     """MAP-fit all continuous parameters (discrete latents held fixed).
+    ``tol`` and ``window``: the stop of :func:`lbfgs_minimize`.
 
     Returns (params_map, log_joint_at_map, n_iterations).
     """
-    return _map_fit_multi(pop, init_params, (data,), max_iter, 0.0)
+    return _map_fit_multi(pop, init_params, (data,), max_iter, 0.0, tol=tol, window=window)
 
 
 def _l1_penalty(W, lam: float, l1_eps: float = 1e-6) -> torch.Tensor:
@@ -129,12 +135,15 @@ def _objective(pop, frozen: dict, datas: Sequence[dict], lam: float, l1_eps: flo
     return objective
 
 
-def _map_fit_multi(pop, params0, datas: Sequence[dict], max_iter: int, lam: float, l1_eps: float = 1e-6):
+def _map_fit_multi(pop, params0, datas: Sequence[dict], max_iter: int, lam: float, l1_eps: float = 1e-6,
+                   **stop):
     """MAP over a sequence of data segments, with the sparse penalty when
-    ``lam`` > 0 (see :func:`_objective`). Returns (params, penalized
-    log-posterior at the fit, n_iterations)."""
+    ``lam`` > 0 (see :func:`_objective`); ``stop``: ``tol`` and ``window``
+    of :func:`lbfgs_minimize`. Returns (params, penalized log-posterior at
+    the fit, n_iterations)."""
     opt0, frozen = split_params(params0)
-    opt, val, iters = lbfgs_minimize(_objective(pop, frozen, datas, lam, l1_eps), opt0, max_iter=max_iter)
+    opt, val, iters = lbfgs_minimize(_objective(pop, frozen, datas, lam, l1_eps), opt0, max_iter=max_iter,
+                                     **stop)
     return {**frozen, **opt}, -val, iters
 
 

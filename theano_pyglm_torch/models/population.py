@@ -13,6 +13,17 @@ The exp-Poisson likelihood in float32 goes through the fused Poisson
 log-likelihood op (ops/kernels.py): on a CUDA device its value+grad runs the
 hand-written kernel K2 and a value-only evaluation (under ``torch.no_grad``)
 runs K1. ``use_fused=False`` selects the plain per-neuron torch path.
+
+Long recordings: with ``time_chunk`` the likelihood is a sum over time
+blocks of that many bins (the last one ragged). With
+``prepare_data(materialize_design=False)`` the (T, N, B) spike design is
+never built: each block rebuilds its own from the spikes with the exact
+L-bin causal halo. The plain path checkpoints each block
+(``torch.utils.checkpoint``), so its backward pass holds one block at a
+time. The fused path launches one kernel per block per evaluation (the JAX
+package skips its fused op under chunking); K2 keeps no design for the
+backward pass, so a rebuilt block's design is freed once its launch
+returns.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from theano_pyglm_torch.models.components import (
     combined_weights,
@@ -40,7 +52,7 @@ from theano_pyglm_torch.utils.dtypes import default_float
 
 __all__ = ["Population"]
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 12: long recordings)"
+_TIME_KEYS = ("X_imp", "X_stim", "X_st")  # data entries with a leading time axis besides S
 
 
 class Population:
@@ -62,16 +74,17 @@ class Population:
     ):
         """``use_fused``: evaluate the exp-Poisson likelihood in float32
         through the fused op (the hand-written kernels on a CUDA device, their
-        plain torch version on the CPU). ``time_chunk`` streaming is not
-        ported yet and raises. ``device`` defaults to the current CUDA
+        plain torch version on the CPU). ``time_chunk``: evaluate the
+        likelihood in time blocks of this many bins (see the module note);
+        with ``prepare_data(materialize_design=False)`` memory is bounded by
+        the block instead of T·N·B. ``device`` defaults to the current CUDA
         device; pass ``device="cpu"`` for the CPU."""
-        if time_chunk:
-            raise NotImplementedError(f"time_chunk is {_NOT_PORTED}")
         validate_spec(spec)
         self.spec = copy.deepcopy(spec)
         self.N = int(spec["N"])
         self.dt = float(spec.get("dt", 1e-3))
         self.use_fused = bool(use_fused)
+        self.time_chunk = int(time_chunk) if time_chunk else None
         # the card unless the caller asks for the CPU; no check, no fall-back
         self.device = torch.device(device if device is not None else "cuda")
         self.dtype = dtype if dtype is not None else default_float()
@@ -147,16 +160,16 @@ class Population:
           S: (T, N) spike counts (float or int, array or tensor).
           stim: optional (T_stim, D) stimulus at interval ``stim_dt``
                 (defaults to the bin width ``dt``).
-          materialize_design: must be True; streaming the design per time
-                block is not ported yet.
+          materialize_design: build X_imp (T,N,B) up front (default). With
+                False only the spikes are kept (no 'X_imp', no centering) and
+                the likelihood rebuilds each time block's design from them;
+                it needs ``time_chunk`` on the Population.
         Returns:
           data dict on the population's device and dtype with 'S' (T,N),
           '_neg_log_S_factorial', 'X_imp' (T,N,B_imp) centered by column with
           its means in '_X_imp_mean' (N,B_imp) and, if the model has a
           stimulus component, 'X_stim' (T, D·B_stim) or 'X_st' (T,D,B_stim).
         """
-        if not materialize_design:
-            raise NotImplementedError(f"materialize_design=False is {_NOT_PORTED}")
         S = self._tensor(S)
         T = S.shape[0]
         data = {
@@ -165,14 +178,15 @@ class Population:
             # once here so the fused likelihood path skips the (T, N) pass.
             "_neg_log_S_factorial": -torch.lgamma(S + 1.0).sum(),
         }
-        X_imp = convolve_with_basis(S, self._tensor(self.basis_imp))
-        # Center the spike design columns (an exact reparameterization: the
-        # column means re-enter the currents as a per-pair constant). This
-        # removes the dominant correlation between every coupling weight and
-        # the bias, which conditions both L-BFGS and HMC.
-        X_mean = X_imp.mean(0)  # (N_pre, B)
-        data["X_imp"] = X_imp - X_mean[None]
-        data["_X_imp_mean"] = X_mean
+        if materialize_design:
+            X_imp = convolve_with_basis(S, self._tensor(self.basis_imp))
+            # Center the spike design columns (an exact reparameterization:
+            # the column means re-enter the currents as a per-pair constant).
+            # This removes the dominant correlation between every coupling
+            # weight and the bias, which conditions both L-BFGS and HMC.
+            X_mean = X_imp.mean(0)  # (N_pre, B)
+            data["X_imp"] = X_imp - X_mean[None]
+            data["_X_imp_mean"] = X_mean
         if self.basis_stim is not None:
             if stim is None:
                 raise ValueError("model has a stimulus component but no stim given")
@@ -206,34 +220,101 @@ class Population:
             I = I + c.current(params, d)
         return I
 
+    def _chunked(self, data) -> bool:
+        """The likelihood runs in time blocks: ``time_chunk`` set and
+        shorter than the recording. Otherwise it needs the materialized
+        design."""
+        if self.time_chunk is not None and data["S"].shape[0] > self.time_chunk:
+            return True
+        if "X_imp" not in data:
+            raise ValueError(
+                "data was prepared with materialize_design=False; build the "
+                "Population with time_chunk=<bins> so the likelihood can "
+                "stream the design per time block"
+            )
+        return False
+
+    def _block(self, data, t0: int) -> dict:
+        """The data dict of the time block that starts at bin ``t0``: its
+        rows of S and of the time-indexed designs, and the rest of ``data``
+        as it is. Without X_imp the block's design is rebuilt from spike rows
+        [t0 − L, t1) (zeros before t = 0): the exact history of a strictly
+        causal L-lag convolution, cut to the block's rows."""
+        S = data["S"]
+        T, N = S.shape
+        L, t1 = self.L_imp, min(t0 + self.time_chunk, T)
+        d = {k: v for k, v in data.items() if k not in _TIME_KEYS}
+        d["S"] = S[t0:t1]
+        for k in _TIME_KEYS:
+            if k in data:
+                d[k] = data[k][t0:t1]
+        if "X_imp" not in data:
+            lo = max(t0 - L, 0)
+            halo = torch.cat([S.new_zeros((L - (t0 - lo), N)), S[lo:t1]])
+            d["X_imp"] = convolve_with_basis(halo, self._tensor(self.basis_imp))[L:]
+        return d
+
     def log_likelihood_per_neuron(self, params, data) -> torch.Tensor:
         """(N,) spike log-likelihood per postsynaptic neuron (factorizes)."""
+        if self._chunked(data):
+            return self._ll_per_neuron_chunked(params, data)
         I = self.total_current(params, data)
         ll = self.observation.log_likelihood(data["S"], I, self.nlin, self.dt)
         return ll.sum(0)
 
+    def _ll_per_neuron_chunked(self, params, data) -> torch.Tensor:
+        """(N,) log-likelihood as a sum over time blocks (the JAX package's
+        ``lax.map`` over blocks under ``jax.checkpoint``). Each block's
+        forward runs again in the backward pass, so neither holds more than
+        one block's design and currents."""
+        G = self.coupling(params)
+
+        def block_ll(t0):
+            # the design is rebuilt inside, so the checkpoint keeps none
+            d = self._block(data, t0)
+            d["_G"] = G
+            I = torch.zeros_like(d["S"])
+            for c in self._current_components:
+                I = I + c.current(params, d)
+            return self.observation.log_likelihood(d["S"], I, self.nlin, self.dt).sum(0)
+
+        total = 0.0
+        for t0 in range(0, data["S"].shape[0], self.time_chunk):
+            if torch.is_grad_enabled():
+                total = total + checkpoint(block_ll, t0, use_reentrant=False)
+            else:
+                total = total + block_ll(t0)
+        return total
+
     def _fused_active(self, data) -> bool:
-        """The fused path: exp-Poisson, float32, design present, opted in.
-        Float64 (CPU verification) runs the plain per-neuron path."""
+        """The fused path: exp-Poisson, float32, opted in. Float64 (CPU
+        verification) runs the plain per-neuron path."""
         return (
             self.use_fused
             and self.nlin.name == "exp"
             and self.observation.name == "poisson"
-            and "X_imp" in data
-            and data["X_imp"].dtype == torch.float32
+            and data["S"].dtype == torch.float32
         )
 
     def log_likelihood(self, params, data) -> torch.Tensor:
         if not self._fused_active(data):
             return self.log_likelihood_per_neuron(params, data).sum()
-        T = data["S"].shape[0]
         U = combined_weights(self.impulse.effective(params), self.coupling(params))
-        X_f = data["X_imp"].reshape(T, self.N * self.B_imp)
-        I_rest = self.bias.current(params, data) + self.bkgd.current(params, data)
         mean = data.get("_X_imp_mean")
-        if mean is not None:
-            I_rest = I_rest + (mean.reshape(-1) @ U)[None, :]
-        ll = fused_poisson_ll(X_f, U, I_rest, data["S"], self.dt)
+        offset = None if mean is None else (mean.reshape(-1) @ U)[None, :]
+        starts = range(0, data["S"].shape[0], self.time_chunk) if self._chunked(data) else (None,)
+        ll = 0.0
+        for t0 in starts:
+            # one kernel launch per block: the block's design, rebuilt or a
+            # slice, is dropped once the launch returns (K2 keeps dU and
+            # dI_rest for the backward pass, not X_f)
+            d = data if t0 is None else self._block(data, t0)
+            X_f = d["X_imp"].reshape(d["S"].shape[0], self.N * self.B_imp)
+            I_rest = self.bias.current(params, d) + self.bkgd.current(params, d)
+            if offset is not None:
+                I_rest = I_rest + offset
+            ll = ll + fused_poisson_ll(X_f, U, I_rest, d["S"], self.dt)
+            del d, X_f
         const = data.get("_neg_log_S_factorial")
         if const is None:
             const = -torch.lgamma(data["S"] + 1.0).sum()

@@ -78,10 +78,10 @@ def load_fused_ll() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (x_f, u, i_rest, s, [d_irest], part, out, barrier,
-    #  T, NB, N, tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt, stream)
-    lib.fused_ll_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [f32, f32, ptr]
+    #  T, NB, N, W, tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt, stream)
+    lib.fused_ll_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [f32, f32, ptr]
     lib.fused_ll_fwd.restype = i32
-    lib.fused_ll_vg.argtypes = [ptr] * 8 + [i32] * 8 + [f32, f32, ptr]
+    lib.fused_ll_vg.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
     lib.fused_ll_vg.restype = i32
     lib.fused_ll_error_string.argtypes = [i32]
     lib.fused_ll_error_string.restype = ctypes.c_char_p

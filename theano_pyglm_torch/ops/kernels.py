@@ -22,9 +22,19 @@ of :data:`LAUNCHES`; for CPU tensors it runs the plain torch version beside
 it (:func:`fused_poisson_ll_reference`), which is also the tests' oracle.
 Any other placement, or a CUDA tensor that is not float32 and contiguous,
 raises. :class:`FusedPoissonLL` is the autograd op: K2 when ``u`` or
-``i_rest`` needs a gradient, else K1. A call's tile, grid and shared memory
-come from :func:`launch_plan`, a plain function of the shapes. The
-chain-batched form (ROADMAP K3) and bf16 designs (K4) are not ported yet.
+``i_rest`` needs a gradient, else K1. A call's tile, grid, column groups and
+shared memory come from :func:`launch_plan`, a plain function of the shapes.
+
+Column groups. A block keeps its columns of U in shared memory, which holds
+all of U up to NB·N ≈ 8,000 words (NB = 5N: N ≤ 88). Column n of I, dI_rest
+and dU depends on column n of U alone, so past that the N columns are cut
+into G groups of ``group_cols`` (a multiple of 8) and each block works on one
+group: G is the least count whose group fits at a 4-bin tile (NB = 5N: G = 2
+for 89 ≤ N ≤ 112; N = 100 runs two groups of 56 and 44). G = 1 at every
+smaller shape, where the launch is what it was before groups. A tile's X_f is
+read once per group, so its device-memory reads grow to G·|X_f| where the
+L2 does not serve the groups that share a tile. The chain-batched form
+(ROADMAP K3) and bf16 designs (K4) are not ported yet.
 """
 
 from __future__ import annotations
@@ -88,13 +98,16 @@ def fused_poisson_ll_reference(x_f, u, i_rest, s, dt: float):
 
 
 class LaunchPlan(NamedTuple):
-    """How one call of K1 or K2 is cut (see the source note of the kernels)."""
+    """How one call of K1 or K2 is cut (see the source note of the kernels).
+    The grid is (grid_x, grid_y · groups) blocks."""
 
     tile_t: int  # bins per time tile, a multiple of 4
     n_tiles: int  # ceil(T / tile_t)
     grid_x: int  # persistent blocks striding over the tiles, at most one per SM
-    grid_y: int  # K2: slices of the dU micro-tiles; K1: 1
+    grid_y: int  # K2: slices of one group's dU micro-tiles; K1: 1
     smem_bytes: int  # dynamic shared memory of one block
+    groups: int  # G, the column groups of U (1: all N columns in every block)
+    group_cols: int  # columns of a group: N when G = 1, else a multiple of 8
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -103,7 +116,8 @@ def _ceil_to(x: int, m: int) -> int:
 
 def _smem_bytes(NB: int, N: int, tile_t: int) -> int:
     """Mirror of smem_bytes_for in the source: U, two stages of the X_f,
-    I_rest and S tiles, and a join scratch, in 32-bit words."""
+    I_rest and S tiles, and a join scratch, in 32-bit words, for a block
+    that holds N columns (a column group's width)."""
     bs = _ceil_to(N, 8) + (0 if _ceil_to(N, 8) % 16 else 8)  # b_stride
     ns = _ceil_to(tile_t * N, 4) + 8  # n_span
     stage = _ceil_to(tile_t, 16) * NB + 2 * ns
@@ -120,28 +134,45 @@ def du_tiles(NB: int, N: int) -> int:
     return -(-NB // DU_TILE[0]) * -(-N // DU_TILE[1])
 
 
+def _group_cols(NB: int, N: int) -> int:
+    """Columns of a group for the least G whose group fits at a 4-bin tile:
+    N itself (G = 1), else ceil(N / G) rounded up to whole n-tiles of 8.
+    Raises ValueError when not even one n-tile fits."""
+    for G in range(1, -(-N // 8) + 1):
+        W = N if G == 1 else _ceil_to(-(-N // G), 8)
+        if _smem_bytes(NB, W, 4) <= SMEM_LIMIT:
+            return W
+    W = min(N, 8)
+    raise ValueError(
+        f"NB={NB}, N={N} needs {_smem_bytes(NB, W, 4)} B of shared memory even in column "
+        f"groups of {W} (> {SMEM_LIMIT})"
+    )
+
+
 @functools.lru_cache(maxsize=256)
 def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool) -> LaunchPlan:
-    """Tile, grid and shared memory of one call at (T, NB, N) on a card with
-    ``sm_count`` SMs.
+    """Tile, grid, column groups and shared memory of one call at (T, NB, N)
+    on a card with ``sm_count`` SMs.
 
-    The tile is the widest multiple of 4 bins up to TILE_MAX whose two
-    stages fit in SMEM_LIMIT, then narrowed so that every block takes the
-    same number of tiles, give or take one. K2 splits its dU micro-tiles
-    over grid_y slices of THREADS. Raises ValueError when not even a 4-bin
-    tile fits.
+    G is the least number of column groups whose U slice and two 4-bin
+    stages fit in SMEM_LIMIT (:func:`_group_cols`). The tile is the widest
+    multiple of 4 bins up to TILE_MAX whose two stages fit beside the group,
+    then narrowed so that every block takes the same number of tiles, give
+    or take one. K2 splits a group's dU micro-tiles over grid_y slices of
+    THREADS. Raises ValueError when not even a group of 8 columns fits at a
+    4-bin tile, or when one time tile's blocks outnumber the SMs.
     """
     if min(T, NB, N, sm_count) < 1:
         raise ValueError(f"empty launch: T={T} NB={NB} N={N} sm_count={sm_count}")
-    if _smem_bytes(NB, N, 4) > SMEM_LIMIT:
-        raise ValueError(
-            f"NB={NB}, N={N} needs {_smem_bytes(NB, N, 4)} B of shared memory (> {SMEM_LIMIT})"
-        )
+    W = _group_cols(NB, N)
+    groups = -(-N // W)
     tile_max = 4
-    while tile_max + 4 <= TILE_MAX and _smem_bytes(NB, N, tile_max + 4) <= SMEM_LIMIT:
+    while tile_max + 4 <= TILE_MAX and _smem_bytes(NB, W, tile_max + 4) <= SMEM_LIMIT:
         tile_max += 4
-    grid_y = -(-du_tiles(NB, N) // THREADS) if grad else 1
-    gx_cap = max(1, sm_count // grid_y)
+    grid_y = -(-du_tiles(NB, W) // THREADS) if grad else 1
+    if grid_y * groups > sm_count:
+        raise ValueError(f"NB={NB}, N={N}: {grid_y * groups} blocks a tile exceed {sm_count} SMs")
+    gx_cap = sm_count // (grid_y * groups)
     per_block = -(-T // (gx_cap * tile_max))
     tile_t = min(tile_max, _ceil_to(-(-T // (gx_cap * per_block)), 4))
     n_tiles = -(-T // tile_t)
@@ -151,7 +182,9 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool) -> LaunchPla
         n_tiles=n_tiles,
         grid_x=grid_x,
         grid_y=grid_y,
-        smem_bytes=_smem_bytes(NB, N, tile_t),
+        smem_bytes=_smem_bytes(NB, W, tile_t),
+        groups=groups,
+        group_cols=W,
     )
 
 
@@ -204,11 +237,12 @@ def _launch(with_grad: bool, x_f, u, i_rest, s, dt: float):
     N = u.shape[1]
     dev = x_f.device
     plan = launch_plan(T, NB, N, _sm_count(dev.index), with_grad)
-    width = _ceil_to(NB * N + 1 if with_grad else 1, 4)  # float4 rows
+    # float4 rows: dU (K2), then one value per column group
+    width = _ceil_to((NB * N if with_grad else 0) + plan.groups, 4)
     part = torch.empty((plan.grid_x, width), dtype=torch.float32, device=dev)
     out = torch.empty(width, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sizes = (T, NB, N, plan.tile_t, plan.grid_x, plan.grid_y, plan.smem_bytes,
+    sizes = (T, NB, N, plan.group_cols, plan.tile_t, plan.grid_x, plan.grid_y, plan.smem_bytes,
              dev.index, float(dt), math.log(dt), stream)
     ins = (x_f.data_ptr(), u.data_ptr(), i_rest.data_ptr(), s.data_ptr())
     scratch = (part.data_ptr(), out.data_ptr(), _barrier(dev, stream).data_ptr())

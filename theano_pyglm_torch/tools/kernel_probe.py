@@ -43,23 +43,25 @@ VARIANTS = {
 }
 # (anchor in the source, what replaces it); each anchor must occur once
 EDITS = [
-    ("    const bool lead_y = blockIdx.y == 0;\n",
-     "    const bool lead_y = blockIdx.y == 0;\n    if (PROBE_EXIT) return;\n"),
-    ("        const int n[3] = {rows * NB, rows * N, rows * N};",  # nothing to copy: the barrier still completes
+    ("    const bool lead_y = ys == 0;\n",
+     "    const bool lead_y = ys == 0;\n    if (PROBE_EXIT) return;\n"),
+    ("        const int span = whole ? rows * N : 0, strided = whole ? 0 : rows * nc;\n"
+     "        const int n[3] = {rows * NB, span, span};",  # nothing to copy: the barrier still completes
      "        const int keep = !(PROBE_NO_COPY && tile != blockIdx.x);\n"
-     "        const int n[3] = {keep * rows * NB, keep * rows * N, keep * rows * N};"),
+     "        const int span = keep * (whole ? rows * N : 0), strided = keep * (whole ? 0 : rows * nc);\n"
+     "        const int n[3] = {keep * rows * NB, span, span};"),
     ("    return cudaLaunchCooperativeKernel(",
      "    if (PROBE_PLAIN_LAUNCH) {\n"
-     "        fused_ll_tiles<kGrad><<<dim3(grid_x, grid_y), kThreads, smem_bytes, stream>>>(\n"
-     "            x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, tile_t, dt, log_dt);\n"
+     "        fused_ll_tiles<kGrad><<<dim3(grid_x, grid_y * G), kThreads, smem_bytes, stream>>>(\n"
+     "            x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, W, tile_t, dt, log_dt);\n"
      "        return cudaGetLastError();\n"
      "    }\n"
      "    return cudaLaunchCooperativeKernel("),
     ("for (int kk = 0; kk < KP; kk += 8) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 8) {"),
     ("            if (owns_du) {\n", "            if (owns_du && !PROBE_NO_BWD) {\n"),
-    ("if (r < rows && n < N) {  // the ragged",
-     "if (PROBE_NO_EPI) ll += acc_lo[j][c] + acc_hi[j][c];\n"
-     "                    if (!PROBE_NO_EPI && r < rows && n < N) {  // the ragged"),
+    ("if (r < rows && n < nc) {  // the ragged",
+     "if (PROBE_NO_EPI) part += acc_lo[j][c] + acc_hi[j][c];\n"
+     "                    if (!PROBE_NO_EPI && r < rows && n < nc) {  // the ragged"),
 ]
 FLAGSHIP, DT = (60_000, 135, 27), 1e-3
 

@@ -4,9 +4,8 @@
 The reference's flags (--dataFile, --resultsDir, --model, --N, ...), data
 files in .npz (preferred), .pkl or .mat (scipy.io), results files, and the
 train/validation split of the time axis (``segment_data``). Event-format
-.npz files are binned with numpy by the expression of the JAX package's
-native binner (``utils/binning.py``, whose C path is not ported yet:
-ROADMAP.md, queue 1 item 13), so the counts are the same bit for bit.
+.npz files are binned on load by :func:`theano_pyglm_torch.utils.binning.bin_spikes`
+(the C binner, or its numpy path, which gives the same counts bit for bit).
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ import os
 import pickle
 
 import numpy as np
+
+from theano_pyglm_torch.utils.binning import bin_spikes
 
 __all__ = ["parse_cmd_line_args", "load_data", "save_results", "load_results", "segment_data"]
 
@@ -38,28 +39,15 @@ def parse_cmd_line_args(argv=None, description: str = "theano_pyglm_torch harnes
     p.add_argument("--xv", action="store_true", help="cross-validate the sparsity penalty")
     p.add_argument("--resume", action="store_true", help="resume MCMC from the checkpoint dir")
     p.add_argument("--checkpoint_every", type=int, default=0, help="checkpoint cadence (0 = per chunk)")
+    p.add_argument("--device", type=str, default="cuda", help="torch device (cuda, or cpu)")
     return p.parse_args(argv)
-
-
-def _bin_events(times, neurons, T: int, dt: float, N: int) -> np.ndarray:
-    """(T, N) float32 counts of spike events; events outside the grid or
-    with an unknown neuron are dropped. times·(1/dt), truncated, as the JAX
-    package's binner computes it: a division would round some boundary
-    events into the next bin."""
-    times = np.asarray(times, dtype=np.float64)
-    neurons = np.asarray(neurons, dtype=np.int64)
-    out = np.zeros((T, N), dtype=np.float32)
-    t = (times * (1.0 / dt)).astype(np.int64)
-    ok = (t >= 0) & (t < T) & (neurons >= 0) & (neurons < N)
-    np.add.at(out, (t[ok], neurons[ok]), 1.0)
-    return out
 
 
 def load_data(path: str) -> dict:
     """Load a data dict with keys S (T,N), dt, and optionally stim/stim_dt.
 
     Event-format files (keys ``spike_times``/``spike_neurons`` + ``dt``,
-    ``T_sec``, ``N``) are binned on load."""
+    ``T_sec``, ``N``) are binned on load (:func:`bin_spikes`)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npz":
         with np.load(path, allow_pickle=True) as f:
@@ -67,7 +55,7 @@ def load_data(path: str) -> dict:
         if "S" not in out and "spike_times" in out:
             dt = float(out.get("dt", 1e-3))
             T = int(round(float(out["T_sec"]) / dt))
-            out["S"] = _bin_events(out["spike_times"], out["spike_neurons"], T, dt, int(out["N"]))
+            out["S"] = bin_spikes(out["spike_times"], out["spike_neurons"], T, dt, int(out["N"]))
         return out
     if ext in (".pkl", ".pickle"):
         with open(path, "rb") as f:
