@@ -18,6 +18,11 @@ Phases, each of which raises on a mismatch or a non-finite value:
    and with the 50 MB L2 flushed, beside the plain version's, the bound
    (bytes read and written once over 3.35 TB/s, or float32 operations over
    67 TFLOP/s, whichever is longer) and the roofline share of the cold time.
+   Then K3 (K3-fwd and K3-vg, the chain-batched pair) on the flagship's 4
+   chains: against its plain version (with a clipped case) and against
+   K1/K2 on each chain alone, bit for bit repeated, one launch per call,
+   warm and cold times beside the plain version's and K1/K2's on the 4
+   chains in turn, its bound (X_f and S read once for all chains) and share.
 3. The flagship slice through the public API: make_model →
    Population.sample → simulate (T=60,000) → prepare_data →
    smart_initialize → map_fit → 20 adaptive HMC transitions of 10 leapfrog
@@ -30,17 +35,25 @@ Phases, each of which raises on a mismatch or a non-finite value:
    theano_pyglm_torch.scripts.rgc_flagship.run with 4 chains, 40 warmup and
    10 sampling sweeps of the full sweep (glm Laplace block, HMC on the
    impulse logits and the latent locations, weight hypers, collapsed (A, W)
-   birth-death, rotation), then R-hat, ESS and link-prediction AUC. The
-   kernels' launch counts over the run must equal what the sweep implies;
-   every leaf finite, A binary, accept rates in range; psi, the log-joint and
-   the glm Laplace mode of chain 0's final state on the card in float32
-   against the CPU in float64. Printed: ms per sweep (4 chains and one),
-   ms and synchronizing calls per stage, device busy time of one sweep.
+   birth-death, rotation), one batched sweep over the 4 chains, then R-hat,
+   ESS and link-prediction AUC. The kernels' launch counts over the run must
+   equal what the batched sweep implies: every likelihood evaluation one K3
+   launch for all chains, none of K1/K2; every leaf finite, A binary, accept
+   rates in range; psi, the log-joint and the glm Laplace mode of chain 0's
+   final state on the card in float32 against the CPU in float64; one sweep
+   of the 4 chains batched against the same sweep at C = 1 on each chain in
+   turn, from the same state and generators: each chain within 1 % of its
+   own run's elements (margin decisions in float32) and ten times nearer
+   it than any other chain's (config 4 likewise). Printed: the 4-chain batched sweep and each stage alone at
+   C = 4, and beside them the same code at C = 1 on the 4 chains in turn:
+   ms per sweep, synchronizing calls, device activities, busy time and idle
+   share.
 6. Acceptance configs 1-4 (theano_pyglm_torch/scripts/acceptance.py) at
    their full N and T, depth cut. For each: K1/K2 against the plain version
-   at the config's shape, as in phase 2; then, with the launch counts set
-   to 0 just before and read just after, the config's path, where every
-   likelihood evaluation must have gone through K1/K2. Config 1 (N=1,
+   at the config's shape, as in phase 2, and K3 at its sampler's chains
+   (configs 2-4); then, with the launch counts set to 0 just before and read
+   just after, the config's path, where every likelihood evaluation must
+   have gone through K1/K2 (fits) or K3 (samplers). Config 1 (N=1,
    T=60,000): MAP at least the truth's log-joint. Config 2 (ER N=10,
    T=240,000): 3-fold cross-validated lambda over [1, 3, 10], sparse MAP,
    the posterior-support sampler with 2 chains x (20 + 10) sweeps; K2
@@ -48,7 +61,8 @@ Phases, each of which raises on a mismatch or a non-finite value:
    Config 3 (N=10, T=30,000): MAP, 4 chains x (20 + 10) sweeps. Config 4
    (SBM N=16, T=60,000, planted partition): 4 chains x (40 annealed warmup
    + 10) sweeps, launches as the sweep implies, types, pi and B in range,
-   no synchronizing call in the discrete stage or the full sweep, and the
+   no synchronizing call in the batched discrete stage or the full sweep
+   (timed as in phase 5, beside C = 1 in turn), and the
    collapsed type conditionals and the log-joint of chain 0's final state
    on the card against the CPU in float64.
 7. The sampler's model variants, each path with the launch counts set to
@@ -111,9 +125,15 @@ in phases 5, 6 (config 4), 7a, 7b, 7d, 8d and 9; the latent locations in
 phases 5 and 7d; the whitened glm-HMC block in 7d (glm_update='hmc').
 Configs 2 and 3 keep their 20 warmup sweeps (step size only), as before.
 
+The samplers of more than one chain (phases 5, 6 configs 2-4, 7a, 7f) run
+one batched sweep over their chains and launch K3; the one-chain samplers
+(7b, 7c, 7d, 8d, 9) run the same sweep at C = 1, where K1/K2 carry the
+likelihood.
+
 The line before the last two is one JSON object describing the kernels
-(times and errors from phase 2, launches summed over the paths of phases
-3, 5, 6, 7, 8 and 9), the next the card's name and power limit; the last
+K1, K2, K3-fwd and K3-vg (times and errors from phase 2, launches summed
+over the paths of phases 3, 5, 6, 7, 8 and 9, each of which must have
+launched at least once), the next the card's name and power limit; the last
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -138,6 +158,7 @@ from theano_pyglm_torch.inference import ars, gibbs  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
 from theano_pyglm_torch.inference.map import cross_validate_lambda, map_fit, sparse_map_fit, split_params  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, gibbs_sample, make_sweep  # noqa: E402
+from theano_pyglm_torch.inference.mcmc import chain_state, stack_states  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import whitening_factor  # noqa: E402
 from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  # noqa: E402
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
@@ -203,17 +224,20 @@ def bound(k: str, ops, x_reads: int = 1) -> tuple:
     """(ms, resource): the least time the card could take for kernel k on
     these operands: each input read once, each output written once, against
     the float32 multiply-adds of the product(s). ``x_reads``: count X_f that
-    many times (the kernels read it once per column group)."""
+    many times (the kernels read it once per column group). K3's operands
+    carry C chains of U and I_rest: C times the products and outputs, one
+    read of X_f and S."""
     x, u, ir, s = ops
     T, NB = x.shape
-    N = u.shape[1]
+    N = u.shape[-1]
+    C = u.shape[0] if u.ndim == 3 else 1
     nbytes = sum(t.numel() * t.element_size() for t in ops) + (x_reads - 1) * x.numel() * x.element_size()
-    flops = 2 * T * NB * N
-    if k == "vg":
-        nbytes += 4 * (T * N + NB * N + 1)  # dI_rest, dU, ll
+    flops = 2 * T * NB * N * C
+    if k.startswith("vg"):
+        nbytes += 4 * C * (T * N + NB * N + 1)  # dI_rest, dU, ll
         flops *= 2  # X_fᵀ @ dI_rest
     else:
-        nbytes += 4
+        nbytes += 4 * C
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
@@ -221,6 +245,18 @@ def bound(k: str, ops, x_reads: int = 1) -> tuple:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+KERNELS = ("fwd", "vg", "fwd_chains", "vg_chains")  # K1, K2, K3-fwd, K3-vg: kernels.LAUNCHES' keys
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    kernels.LAUNCHES.update({k: 0 for k in KERNELS})
+
+
+def launches_of(fwd=0, vg=0, fwd_chains=0, vg_chains=0) -> dict:
+    return {"fwd": fwd, "vg": vg, "fwd_chains": fwd_chains, "vg_chains": vg_chains}
 
 
 # --- phase 1 ----------------------------------------------------------------
@@ -311,7 +347,7 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
     require(all(torch.equal(x, y) for x, y in zip(a, b)), "K2 not bit-for-bit repeatable")
     require(torch.equal(kernels.fused_ll_value(*ops, DT), kernels.fused_ll_value(*ops, DT)),
             "K1 not bit-for-bit repeatable")
-    require(kernels.LAUNCHES == {"fwd": launches["fwd"] + 2, "vg": launches["vg"] + 2},
+    require(kernels.LAUNCHES == {**launches, "fwd": launches["fwd"] + 2, "vg": launches["vg"] + 2},
             f"not one launch per call: {launches} -> {kernels.LAUNCHES}")
     log("kernels repeat bit for bit, one launch per call")
 
@@ -345,6 +381,111 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
         stats[k] = {"max_abs_err": max_err[k], "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
                     "plain_cold_ms": plain_cold, "bound_ms": bound_ms, "bound_by": bound_by,
                     "share": share, "library_ms": None}
+    return stats
+
+
+def _chain_operands(dev, T, N, C, clip_entries=0):
+    """X_f (T, 5N), C chains of U (C, 5N, N) and I_rest (C, T, N), and S
+    (T, N) in float32 on the card, from numpy seeded with SEED."""
+    NB = 5 * N
+    r = np.random.RandomState(SEED + 2)
+    x = 0.1 * r.randn(T, NB)
+    u = 0.3 * r.randn(C, NB, N)
+    ir = r.randn(C, T, N) - 3.0
+    s = r.poisson(0.02, (T, N))
+    if clip_entries:
+        idx = r.choice(C * T * N, clip_entries, replace=False)
+        ir.reshape(-1)[idx] = np.where(np.arange(clip_entries) % 2 == 0, 45.0, -45.0)
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in (x, u, ir, s)]
+
+
+def _rel(a, b) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def check_chain_kernels(dev, T, N, C, label, card) -> dict:
+    """K3-fwd and K3-vg on C chains at (T, NB=5N, N) against the plain
+    version, K1/K2's limits: each chain's value 1e-5 relative, dU 1e-5
+    relative L2, dI_rest rtol=1e-5 / atol=1e-6, with a clipped case; each
+    chain against K1/K2 on that chain alone, the same limits; bit-for-bit
+    repeats, one launch per call; the median times of 50 calls, warm and
+    L2-cold, beside the plain version's and beside K1/K2 launched on the C
+    chains in turn; the bound (X_f and S read once for all chains) and the
+    roofline share of the cold time."""
+    max_err = {}
+    for clip_entries in (0, 500):
+        ops = _chain_operands(dev, T, N, C, clip_entries)
+        ll_r, du_r, dir_r = kernels.fused_poisson_ll_chains_reference(*ops, DT)
+        v = kernels.fused_ll_value_chains(*ops, DT)
+        ll, du, dir_ = kernels.fused_ll_value_and_grad_chains(*ops, DT)
+        torch.cuda.synchronize()
+        rel_v = float(((v - ll_r).abs() / ll_r.abs()).max())
+        rel_ll = float(((ll - ll_r).abs() / ll_r.abs()).max())
+        rel_du, err_dir = _rel(du, du_r), float((dir_ - dir_r).abs().max())
+        require(bool(torch.isfinite(v).all() and torch.isfinite(ll).all()), f"{label}: non-finite K3 value")
+        require(rel_v <= 1e-5, f"{label}: K3-fwd value rel err {rel_v}")
+        require(rel_ll <= 1e-5, f"{label}: K3-vg value rel err {rel_ll}")
+        require(rel_du <= 1e-5, f"{label}: K3-vg dU rel-L2 err {rel_du}")
+        torch.testing.assert_close(dir_, dir_r, rtol=1e-5, atol=1e-6)
+        # each chain alone through K1/K2
+        worst = {"value": 0.0, "dU": 0.0, "dI_rest": 0.0}
+        for c in range(C):
+            u_c, ir_c = ops[1][c].contiguous(), ops[2][c].contiguous()
+            ll_c, du_c, dir_c = kernels.fused_ll_value_and_grad(ops[0], u_c, ir_c, ops[3], DT)
+            v_c = kernels.fused_ll_value(ops[0], u_c, ir_c, ops[3], DT)
+            worst["value"] = max(worst["value"], abs(float(ll[c]) - float(ll_c)) / abs(float(ll_c)),
+                                 abs(float(v[c]) - float(v_c)) / abs(float(v_c)))
+            worst["dU"] = max(worst["dU"], _rel(du[c], du_c))
+            worst["dI_rest"] = max(worst["dI_rest"], float((dir_[c] - dir_c).abs().max()))
+            torch.testing.assert_close(dir_[c], dir_c, rtol=1e-5, atol=1e-6)
+        require(worst["value"] <= 1e-5 and worst["dU"] <= 1e-5, f"{label}: K3 against K1/K2 per chain {worst}")
+        log(f"{label} T={T} N={N} C={C}, K3 vs plain (clipped entries {clip_entries}): K3-fwd value rel "
+            f"{rel_v:.3e}; K3-vg value rel {rel_ll:.3e}, dU rel-L2 {rel_du:.3e}, dI_rest max abs {err_dir:.3e}; "
+            f"against K1/K2 on each chain alone: value rel {worst['value']:.3e}, dU rel-L2 {worst['dU']:.3e}, "
+            f"dI_rest max abs {worst['dI_rest']:.3e}")
+        if clip_entries:
+            require(int((dir_ == 0).sum()) >= clip_entries, f"{label}: K3 clip mask not applied")
+        else:
+            max_err["fwd_chains"] = float((v - ll_r).abs().max())
+            max_err["vg_chains"] = max(float((ll - ll_r).abs().max()), float((du - du_r).abs().max()), err_dir)
+
+    ops = _chain_operands(dev, T, N, C)
+    launches = dict(kernels.LAUNCHES)
+    a, b = kernels.fused_ll_value_and_grad_chains(*ops, DT), kernels.fused_ll_value_and_grad_chains(*ops, DT)
+    require(all(torch.equal(x, y) for x, y in zip(a, b)), f"{label}: K3-vg not bit-for-bit repeatable")
+    require(torch.equal(kernels.fused_ll_value_chains(*ops, DT), kernels.fused_ll_value_chains(*ops, DT)),
+            f"{label}: K3-fwd not bit-for-bit repeatable")
+    want = {**launches, "fwd_chains": launches["fwd_chains"] + 2, "vg_chains": launches["vg_chains"] + 2}
+    require(kernels.LAUNCHES == want, f"{label}: K3 not one launch per call: {launches} -> {kernels.LAUNCHES}")
+    log(f"{label}: K3 repeats bit for bit, one launch per call")
+
+    x, u, ir, s = ops
+    per = [(u[c].contiguous(), ir[c].contiguous()) for c in range(C)]
+    fns = {
+        "fwd_chains": (lambda: kernels.fused_ll_value_chains(*ops, DT),
+                       lambda: kernels.fused_poisson_ll_chains_value_reference(*ops, DT),
+                       lambda: [kernels.fused_ll_value(x, u_c, ir_c, s, DT) for u_c, ir_c in per]),
+        "vg_chains": (lambda: kernels.fused_ll_value_and_grad_chains(*ops, DT),
+                      lambda: kernels.fused_poisson_ll_chains_reference(*ops, DT),
+                      lambda: [kernels.fused_ll_value_and_grad(x, u_c, ir_c, s, DT) for u_c, ir_c in per]),
+    }
+    flush = torch.empty(40 * 2**20, dtype=torch.float32, device=dev)  # 160 MB
+    stats = {}
+    for k, (kern, plain, in_turn) in fns.items():
+        warm, cold = median_ms(kern), median_ms(kern, flush=flush)
+        plain_warm, plain_cold = median_ms(plain), median_ms(plain, flush=flush)
+        turn_warm, turn_cold = median_ms(in_turn), median_ms(in_turn, flush=flush)
+        bound_ms, bound_by = bound(k, ops)
+        share = bound_ms / cold
+        plan = kernels.launch_plan(T, 5 * N, N, kernels._sm_count(dev.index), k == "vg_chains", chains=C)
+        log(f"{label} T={T} NB={5 * N} N={N} C={C}, median of 50 calls, {k}: kernel {warm:.4f} ms warm, "
+            f"{cold:.4f} ms cold; plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms cold; "
+            f"K1/K2 on the {C} chains in turn {turn_warm:.4f} ms warm, {turn_cold:.4f} ms cold; bound "
+            f"{bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; tile "
+            f"{plan.tile_t}, grid {plan.grid_x} x {plan.grid_y}, {plan.smem_bytes} B of shared memory [{card}]")
+        stats[k] = {"max_abs_err": max_err[k], "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
+                    "plain_cold_ms": plain_cold, "k1k2_in_turn_ms": turn_warm, "k1k2_in_turn_cold_ms": turn_cold,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "share": share, "library_ms": None}
     return stats
 
 
@@ -524,14 +665,17 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def _require_sweep_launches(what, launches, ll_evals, chains, sweeps) -> None:
-    """K1/K2 launches of a sampler run as the sweep implies. Per sweep of one
-    chain only the impulse block evaluates the fused likelihood: a
-    value-only re-anchoring of its log-density (K1), then one HMC transition
-    of L leapfrog steps, two gradients a step (K2 each) and a value-only end
-    point (K1). So K2 = chains·sweeps·2L, K1 = chains·sweeps·2."""
-    want = {"fwd": chains * sweeps * 2, "vg": chains * sweeps * 2 * LEAPFROG_STEPS}
+    """Kernel launches of a sampler run as the sweep implies. Per batched
+    sweep only the impulse block evaluates the fused likelihood, once for
+    all chains: a value-only re-anchoring of its log-density, then one HMC
+    transition of L leapfrog steps, two gradients a step and a value-only
+    end point. With C > 1 chains each evaluation is one K3 launch, and K1/K2
+    launch none (K3-vg = sweeps·2L, K3-fwd = sweeps·2, whatever C is); one
+    chain is K1/K2's (K2 = sweeps·2L, K1 = sweeps·2)."""
+    per = {"fwd": sweeps * 2, "vg": sweeps * 2 * LEAPFROG_STEPS}
+    want = launches_of(fwd_chains=per["fwd"], vg_chains=per["vg"]) if chains > 1 else launches_of(**per)
     require(launches == want, f"{what}: kernel launches {launches} != {want} implied by the sweep")
-    require(ll_evals == {"grad": want["vg"], "value": want["fwd"]},
+    require(ll_evals == {"grad": per["vg"], "value": per["fwd"]},
             f"{what}: likelihood evaluations {ll_evals}: some took the plain path on the card")
 
 
@@ -604,49 +748,112 @@ def gibbs_phase(sl, card: str) -> dict:
     require(err_lj <= 1e-5, f"log-joint rel err {err_lj}")
     require(err_th <= 1e-4, f"Laplace theta* rel err {err_th}")
 
-    time_sweeps(pop, data, fit, states, card)
+    time_sweeps(pop, data, fit, stack_states(states), card, check_modes=True)
     return launches
 
 
-def time_sweeps(pop, data, fit, states, card, label="", stages=SWEEP_STAGES, **sweep_kw) -> dict:
-    """The full sweep over all chains in turn and on one chain, then each of
-    ``stages`` alone on one chain: ms per sweep over 3 sweeps, the
-    synchronizing calls of one sweep, then (last) the device's activities
-    and busy ms of one sweep under torch.profiler. Returns {stage or None:
-    its synchronizing calls}."""
+def _mismatch(x, y) -> tuple:
+    """(elements that differ, elements, A entries that differ) over every
+    tensor leaf of two one-chain states: a discrete leaf's unequal entries,
+    a float leaf's entries off by more than 1e-4 of its largest magnitude."""
+    n_off = n = a_off = 0
+    for path, a, b in _tensor_leaves(x, y):
+        require(a.shape == b.shape and a.dtype == b.dtype, f"{path}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        if a.is_floating_point():
+            off = (a - b).abs() > 1e-4 * max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+        else:
+            off = a != b
+        n_off, n = n_off + int(off.sum()), n + a.numel()
+        if path.endswith(".A"):
+            a_off += int(off.sum())
+    return n_off, n, a_off
+
+
+def _require_modes_agree(pop, sweep, state, label) -> None:
+    """One sweep of the C chains batched and one at C = 1 on each chain in
+    turn, from the same state with generators seeded alike. On the CPU in
+    float64 the two are equal draw for draw (tests/test_torch_batched_chains.py).
+    On the card, in float32, K3 and K1/K2 (and the batched and per-chain
+    products) sum in other orders, so a decision at the margin can go the
+    other way (an adjacency entry flipped in one chain of 4 here): each
+    chain's state may differ from its own C = 1 run in at most 1 % of its
+    elements (a discrete entry unequal, a float entry off by more than 1e-4
+    of its leaf's largest magnitude), and must differ from every other
+    chain's C = 1 run in ten times as many (a chain given another chain's
+    draws or K3 slot differs from its own run everywhere)."""
+    C = state["params"]["A"].shape[0]
+
+    def gens():
+        return [torch.Generator(device=pop.device).manual_seed(SEED + 30 + c) for c in range(C)]
+
+    g = gens()
+    batched = sweep(g, state, False, 1.0)
+    g = gens()
+    one = [sweep([g[c]], stack_states([chain_state(state, c)]), False, 1.0) for c in range(C)]
+    got = [chain_state(batched, c) for c in range(C)]
+    want = [chain_state(one[c], 0) for c in range(C)]
+    seen = []
+    for c in range(C):
+        off, n, a_off = _mismatch(got[c], want[c])
+        other = min(_mismatch(got[c], want[d])[0] for d in range(C) if d != c)
+        seen.append(f"chain {c}: {off} of {n} ({a_off} of A), against the nearest other chain {other}")
+        require(off <= n // 100, f"{label}chain {c}: {off} of {n} elements differ from its C = 1 run")
+        require(10 * off < other, f"{label}chain {c}: {off} elements differ from its own C = 1 run, "
+                                  f"{other} from another chain's")
+    log(f"{label}one sweep, {C} chains batched against C = 1 on each in turn, the same generators; "
+        f"elements that differ: {'; '.join(seen)}")
+
+
+def time_sweeps(pop, data, fit, state, card, label="", stages=SWEEP_STAGES, check_modes=False,
+                **sweep_kw) -> dict:
+    """The full sweep and each of ``stages`` alone on the C chains of the
+    batched ``state``: one batched sweep of all C chains and, where C > 1,
+    as the comparison, the same code at C = 1 on each chain in turn (with
+    ``check_modes``, first held to agree chain by chain over one sweep:
+    :func:`_require_modes_agree`). For each: ms per sweep over 3 sweeps, the
+    synchronizing calls of one sweep, then (last) the device's activities,
+    busy ms and idle share of one sweep under torch.profiler. Returns
+    {stage or None: the batched sweep's synchronizing calls}."""
     n_rep = 3  # depth cut (see the module note)
-    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(len(states))]
-    full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, **sweep_kw)
-    sts = list(states)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_rep):
-        sts = [full(g, s, False, 1.0) for g, s in zip(gens, sts)]
-    torch.cuda.synchronize()
-    ms_all = 1e3 * (time.perf_counter() - t0) / n_rep
-    log(f"{label}full sweep, {len(states)} chains: {ms_all:.2f} ms per sweep ({n_rep} sweeps) [{card}]")
-    count_syncs(lambda: None)  # the debug mode's first switch synchronizes once itself
-    sweeps = {None: full}
+    C = state["params"]["A"].shape[0]
+    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(C)]
+    sweeps = {None: make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, **sweep_kw)}
+    if check_modes and C > 1:
+        _require_modes_agree(pop, sweeps[None], state, label)
     sweeps.update({s: make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit, stages=(s,),
                                  diagnostic=True, **sweep_kw) for s in stages})
+
+    def batched(sweep, st):
+        return sweep(gens, st, False, 1.0)
+
+    def in_turn(sweep, sts):
+        return [sweep([g], s, False, 1.0) for g, s in zip(gens, sts)]
+
+    runs = {f"{C} chains batched": (batched, state)}
+    if C > 1:
+        runs[f"C=1 x {C} in turn"] = (in_turn, [stack_states([chain_state(state, c)]) for c in range(C)])
+    count_syncs(lambda: None)  # the debug mode's first switch synchronizes once itself
     timed, syncs_of = {}, {}
-    for stage, sweep in sweeps.items():
-        st = sweep(gens[0], states[0], False, 1.0)  # first use: lazy library set-up
-        st, syncs = count_syncs(lambda: sweep(gens[0], st, False, 1.0))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_rep):
-            st = sweep(gens[0], st, False, 1.0)
-        torch.cuda.synchronize()
-        timed[stage], syncs_of[stage] = (1e3 * (time.perf_counter() - t0) / n_rep, st), syncs
-        log(f"{label}{'full sweep' if stage is None else 'stage ' + stage}, one chain: {timed[stage][0]:.3f} ms per "
-            f"sweep ({n_rep} sweeps); {len(syncs)} synchronizing calls {sorted(set(syncs))} [{card}]")
+    for how, (run, st0) in runs.items():
+        for stage, sweep in sweeps.items():
+            st = run(sweep, st0)  # first use: lazy library set-up
+            st, syncs = count_syncs(lambda: run(sweep, st))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_rep):
+                st = run(sweep, st)
+            torch.cuda.synchronize()
+            timed[how, stage] = (1e3 * (time.perf_counter() - t0) / n_rep, st)
+            if run is batched:
+                syncs_of[stage] = syncs
+            log(f"{label}{'full sweep' if stage is None else 'stage ' + stage}, {how}: {timed[how, stage][0]:.3f} "
+                f"ms per sweep ({n_rep} sweeps); {len(syncs)} synchronizing calls {sorted(set(syncs))} [{card}]")
     # profiled last: once the profiler has attached, host launches stay slower
-    for stage, sweep in sweeps.items():
-        ms, st = timed[stage]
-        wall, busy, n_dev = device_busy_ms(lambda: sweep(gens[0], st, False, 1.0))
-        log(f"{label}{'full sweep' if stage is None else 'stage ' + stage} under torch.profiler: {n_dev} device "
-            f"activities taking {busy:.3f} ms ({wall:.3f} ms wall profiled); against the unprofiled "
+    for (how, stage), (ms, st) in timed.items():
+        run, sweep = runs[how][0], sweeps[stage]
+        wall, busy, n_dev = device_busy_ms(lambda: run(sweep, st))
+        log(f"{label}{'full sweep' if stage is None else 'stage ' + stage}, {how}, under torch.profiler: {n_dev} "
+            f"device activities taking {busy:.3f} ms ({wall:.3f} ms wall profiled); against the unprofiled "
             f"{ms:.3f} ms the device idles {100 * (1 - busy / ms):.1f} % [{card}]")
     return syncs_of
 
@@ -697,9 +904,9 @@ def _add(a: dict, b: dict) -> dict:
 
 
 def _require_all_fused(what, launches, ll_evals) -> None:
-    """Every likelihood evaluation went through a kernel: K2 for each one
-    with a gradient, K1 for each value-only one."""
-    require(launches == {"vg": ll_evals["grad"], "fwd": ll_evals["value"]},
+    """Every likelihood evaluation of one parameter set went through a
+    kernel: K2 for each one with a gradient, K1 for each value-only one."""
+    require(launches == launches_of(vg=ll_evals["grad"], fwd=ll_evals["value"]),
             f"{what}: launches {launches} against likelihood evaluations {ll_evals}")
 
 
@@ -870,31 +1077,9 @@ def accept_config4(dev, card) -> dict:
         f"{diag['accept_rate_imp']}, adjacency {diag['accept_rate_adjacency']}; planted-partition ARI per "
         f"chain over the {C4_SAMPLES} draws {[round(a, 3) for a in aris]} (reported only)")
 
-    gens = [torch.Generator(device=pop.device).manual_seed(SEED + 20 + c) for c in range(C4_CHAINS)]
-    full = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=init)
-    disc = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=init, stages=("discrete",),
-                      diagnostic=True)
-    n_rep = 3  # depth cut (see the module note)
-    for name, sweep in (("discrete stage", disc), ("full sweep", full)):
-        st = sweep(gens[0], states[0], False, 1.0)  # first use: lazy library set-up
-        st, syncs = count_syncs(lambda: sweep(gens[0], st, False, 1.0))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_rep):
-            st = sweep(gens[0], st, False, 1.0)
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / n_rep
-        log(f"config 4 {name}, one chain: {ms:.3f} ms per sweep ({n_rep} sweeps); {len(syncs)} synchronizing "
-            f"calls {sorted(set(syncs))} [{card}]")
-        require(not syncs, f"config 4 {name}: synchronizing calls {syncs}")
-    sts = list(states)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_rep):
-        sts = [full(g, s, False, 1.0) for g, s in zip(gens, sts)]
-    torch.cuda.synchronize()
-    log(f"config 4 full sweep, {C4_CHAINS} chains: {1e3 * (time.perf_counter() - t0) / n_rep:.2f} ms per sweep "
-        f"({n_rep} sweeps) [{card}]")
+    syncs = time_sweeps(pop, data, init, stack_states(states), card, label="config 4 ", stages=("discrete",),
+                        check_modes=True)
+    require(not syncs["discrete"] and not syncs[None], f"config 4: synchronizing calls {syncs}")
 
     # card (float32) against the CPU (float64) on chain 0's final state
     p0 = states[0]["params"]
@@ -917,6 +1102,10 @@ def accept_config4(dev, card) -> dict:
 
 
 ACCEPT_RUNS = {1: accept_config1, 2: accept_config2, 3: accept_config3, 4: accept_config4}
+#: the chains of each config's batched sampler (K3's C at its shape)
+ACCEPT_SAMPLER_CHAINS = {2: POST_CHAINS, 3: C3_CHAINS, 4: C4_CHAINS}
+#: the kernels each config's path launches: MAP-like fits K1/K2, the samplers K3
+ACCEPT_KERNELS = {1: ("fwd", "vg"), 2: KERNELS, 3: KERNELS, 4: ("fwd_chains", "vg_chains")}
 
 
 def acceptance_phase(dev, card) -> dict:
@@ -926,17 +1115,19 @@ def acceptance_phase(dev, card) -> dict:
     counted from just before the call to just after: not those of its
     timing sweeps, of the truth's log-joint or of the card-vs-CPU checks.
     Returns them summed over the configs."""
-    total = {"fwd": 0, "vg": 0}
+    total = launches_of()
     for c, run in ACCEPT_RUNS.items():
         T_c, N_c = ACCEPT_SHAPES[c]
         check_kernels(dev, T_c, N_c, f"config {c}", card)
-        kernels.LAUNCHES.update(fwd=0, vg=0)
+        if ACCEPT_SAMPLER_CHAINS.get(c):
+            check_chain_kernels(dev, T_c, N_c, ACCEPT_SAMPLER_CHAINS[c], f"config {c}", card)
+        zero_launches()
         t0 = time.perf_counter()
         path = run(dev, card)
         torch.cuda.synchronize()
         log(f"config {c}: done in {time.perf_counter() - t0:.2f} s; launches on its path {path}, in all "
             f"{dict(kernels.LAUNCHES)}")
-        require(all(v > 0 for v in path.values()), f"config {c}: a kernel of the path never launched: {path}")
+        require(all(path[k] > 0 for k in ACCEPT_KERNELS[c]), f"config {c}: a kernel of the path never launched: {path}")
         total = _add(total, path)
     return total
 
@@ -1034,7 +1225,7 @@ def variants_st(dev, card) -> dict:
         f"(b) w_t {errs[1]:.3e}; log-joint rel {err_lj:.3e} ({lj32:.3f} vs {lj64:.3f})")
     require(max(errs) <= 1e-4, f"7a: Laplace theta* rel err {errs}")
     require(err_lj <= 1e-5, f"7a: log-joint rel err {err_lj}")
-    syncs = time_sweeps(pop, data, fit, states, card, label="7a ", stages=("glm", "imp"))
+    syncs = time_sweeps(pop, data, fit, stack_states(states), card, label="7a ", stages=("glm", "imp"))
     require(not syncs["glm"] and not syncs[None], f"7a: synchronizing calls {syncs}")
     return path, {"pop": pop, "data": data, "fit": fit, "true": true, "samples": samples}
 
@@ -1076,7 +1267,7 @@ def variants_shared(dev, card) -> dict:
     log(f"7b card f32 vs CPU f64 on the final state: Laplace theta* rel-L2 (a) [bias, gain] {errs[0]:.3e}, "
         f"(b) w_stim_shared {errs[1]:.3e}")
     require(max(errs) <= 1e-4, f"7b: Laplace theta* rel err {errs}")
-    syncs = time_sweeps(pop, data, init, [state], card, label="7b ", stages=("glm",))
+    syncs = time_sweeps(pop, data, init, stack_states([state]), card, label="7b ", stages=("glm",))
     require(not syncs["glm"], f"7b: synchronizing calls in the glm stage {syncs['glm']}")
     return (path,)
 
@@ -1085,7 +1276,7 @@ def variants_generic(dev, card) -> dict:
     """7c: sparse_weighted_model at config 3's shape (N=10, T=30,000, its
     planted weights) with softplus, then with Bernoulli observations: the
     autograd branches, no fused kernel; card vs CPU of _bin_ll_derivs."""
-    total = {"fwd": 0, "vg": 0}
+    total = launches_of()
     for what, override in (("softplus", {"nlin": {"type": "softplus"}}),
                            ("bernoulli", {"observation": {"type": "bernoulli"}})):
         T3, N3 = ACCEPT_SHAPES[3]
@@ -1110,7 +1301,7 @@ def variants_generic(dev, card) -> dict:
         log(_sampler_ms(f"7c {what} sampler", t_run, 1, GENERIC_WARMUP + GENERIC_SAMPLES, card)
             + f"; launches {launches}; accept glm {diag['accept_rate_glm']:.3f}, imp {diag['accept_rate_imp']:.3f}, "
             f"adjacency {diag['accept_rate_adjacency']:.3f}")
-        require(launches == {"fwd": 0, "vg": 0}, f"7c {what}: the fused op launched {launches}")
+        require(launches == launches_of(), f"7c {what}: the fused op launched {launches}")
         _require_chains(f"7c {what}", [state], samples)
         p0 = state["params"]
         cpu, data64, p64 = _cpu64(pop, data, stim, p0)
@@ -1143,7 +1334,7 @@ def variants_hmc_ars(sl, card) -> dict:
         passes.append(syncs)
         return out
 
-    path = {"fwd": 0, "vg": 0}
+    path = launches_of()
     sweeps = HMC_WARMUP + HMC_SAMPLES
     for what, kw in (("glm_update='hmc'", {"glm_update": "hmc"}), ("bias_update='ars'", {"bias_update": "ars"})):
         before = _counted(pop)
@@ -1201,7 +1392,7 @@ def variants_predictive(st, card) -> dict:
         at_truth = float(pop.log_likelihood(true, data_ho))
     log(f"7e predictive log-likelihood of {K} draws on {T - T_tr} held-out bins: {pll:.3f} in {t_pll:.3f} s "
         f"(a prior draw {prior:.3f}, the truth {at_truth:.3f}); launches {launches} [{card}]")
-    require(launches == {"fwd": K, "vg": 0} and ll_evals == {"grad": 0, "value": K},
+    require(launches == launches_of(fwd=K) and ll_evals == {"grad": 0, "value": K},
             f"7e: launches {launches}, evaluations {ll_evals}, want one K1 per draw ({K})")
     require(math.isfinite(pll) and pll > prior, f"7e: predictive {pll} not above a prior draw's {prior}")
     return (launches,)
@@ -1209,9 +1400,13 @@ def variants_predictive(st, card) -> dict:
 
 def _tensor_leaves(a, b, where="states"):
     """(path, a's tensor, b's tensor) for every tensor leaf of two nestings
-    of dicts, lists and tuples (HMCState records) of the same structure."""
+    of dicts, lists and tuples (HMCState records, by field name) of the same
+    structure."""
     if isinstance(a, torch.Tensor):
         yield where, a, b
+    elif hasattr(a, "_fields"):
+        for k in a._fields:
+            yield from _tensor_leaves(getattr(a, k), getattr(b, k), f"{where}.{k}")
     elif isinstance(a, dict):
         for k in a:
             yield from _tensor_leaves(a[k], b[k], f"{where}.{k}")
@@ -1256,7 +1451,7 @@ def variants_resume(st, card) -> dict:
 def _path(label, run) -> tuple:
     """One path of phase 7, with the launch counts set to 0 just before it:
     returns what ``run`` returns, (the path's launches, ...)."""
-    kernels.LAUNCHES.update(fwd=0, vg=0)
+    zero_launches()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -1321,7 +1516,7 @@ def long_recording_phase(dev, card) -> dict:
     del rates
 
     # (c) streamed MAP: no design in the data, one launch per block per evaluation
-    launches = {"fwd": 0, "vg": 0}
+    launches = launches_of()
     pop_s = CountingPopulation(spec, time_chunk=C, device=dev)
     data_s = pop_s.prepare_data(S, stim=stim, materialize_design=False)
     require("X_imp" not in data_s and "_X_imp_mean" not in data_s, "8c: the streamed data hold a design")
@@ -1337,7 +1532,7 @@ def long_recording_phase(dev, card) -> dict:
     log(f"8c: streamed MAP (time_chunk={C}, {n_blocks} blocks) log-joint {float(lp_map):.3f} against the "
         f"truth's {lp_true:.3f} in {iters} L-BFGS iterations, {t_map:.2f} s [{card}]; likelihood "
         f"evaluations (the truth's included) {evals}, launches {got}")
-    require(got == {"vg": n_blocks * evals["grad"], "fwd": n_blocks * evals["value"]} and evals["grad"] > 0,
+    require(got == launches_of(vg=n_blocks * evals["grad"], fwd=n_blocks * evals["value"]) and evals["grad"] > 0,
             f"8c: launches {got} != {n_blocks} x evaluations {evals}")
     require(math.isfinite(float(lp_map)) and float(lp_map) >= lp_true,
             f"8c: MAP {float(lp_map)} below the truth {lp_true}")
@@ -1366,7 +1561,7 @@ def long_recording_phase(dev, card) -> dict:
     err = abs(ll_res - ll_str) / abs(ll_res)
     log(f"8d: log-likelihood at the MAP point, resident {ll_res:.3f} (launches {got}) against streamed "
         f"{ll_str:.3f}: rel {err:.3e}")
-    require(got == {"fwd": 1, "vg": 0}, f"8d: the resident evaluation launched {got}")
+    require(got == launches_of(fwd=1), f"8d: the resident evaluation launched {got}")
     require(err <= 1e-5, f"8d: resident vs streamed log-likelihood rel err {err}")
     before = _counted(pop_res)
     t0 = time.perf_counter()
@@ -1458,7 +1653,7 @@ class _CountEvaluations:
 def _harness_path(label, run) -> dict:
     """One harness path with the launch counts set to 0 just before it: every
     likelihood evaluation must have launched K1 or K2, and both ran."""
-    kernels.LAUNCHES.update(fwd=0, vg=0)
+    zero_launches()
     t0 = time.perf_counter()
     with _CountEvaluations() as counted:
         run()
@@ -1466,7 +1661,7 @@ def _harness_path(label, run) -> dict:
     got = dict(kernels.LAUNCHES)
     log(f"{label}: {time.perf_counter() - t0:.2f} s; likelihood evaluations {counted.evals}, launches {got}")
     require(got["fwd"] > 0 and got["vg"] > 0, f"{label}: a kernel never launched: {got}")
-    require(got["fwd"] + got["vg"] == counted.evals,
+    require(sum(got.values()) == counted.evals,
             f"{label}: {counted.evals} likelihood evaluations against launches {got}")
     return got
 
@@ -1547,8 +1742,9 @@ def main() -> None:
     floor = median_ms(lambda: one.add_(1.0))
     log(f"timing floor: a one-element torch add timed as the kernels are takes {floor:.4f} ms")
     kstats = check_kernels(dev, T, N, "flagship", card)
+    kstats.update(check_chain_kernels(dev, T, N, GIBBS_CHAINS, "flagship", card))
 
-    kernels.LAUNCHES.update(fwd=0, vg=0)
+    zero_launches()
     sl = flagship_slice(dev)
     launches = dict(kernels.LAUNCHES)
     log(f"launches during the slice: {launches}")
@@ -1556,16 +1752,16 @@ def main() -> None:
 
     inner_loop(sl, card)
 
-    kernels.LAUNCHES.update(fwd=0, vg=0)
+    zero_launches()
     gibbs_launches = gibbs_phase(sl, card)
-    require(all(v > 0 for v in gibbs_launches.values()), "a kernel of the Gibbs path never launched")
-    launches = {k: launches[k] + gibbs_launches[k] for k in launches}
+    require(gibbs_launches["fwd_chains"] > 0 and gibbs_launches["vg_chains"] > 0,
+            f"a kernel of the Gibbs path never launched: {gibbs_launches}")
+    require(gibbs_launches["fwd"] == 0 and gibbs_launches["vg"] == 0,
+            f"the 4-chain sampler launched K1/K2: {gibbs_launches}")
+    launches = _add(launches, gibbs_launches)
 
-    accept_launches = acceptance_phase(dev, card)
-    launches = {k: launches[k] + accept_launches[k] for k in launches}
-
-    variant_launches = variants_phase(dev, card, sl)
-    launches = {k: launches[k] + variant_launches[k] for k in launches}
+    launches = _add(launches, acceptance_phase(dev, card))
+    launches = _add(launches, variants_phase(dev, card, sl))
 
     del sl
     torch.cuda.empty_cache()
@@ -1574,15 +1770,19 @@ def main() -> None:
     launches = _add(launches, harness_phase(dev, card))
 
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included [{card}]")
+    require(all(launches[k] > 0 for k in KERNELS), f"a kernel was never launched on the main paths: {launches}")
     src = os.path.relpath(SOURCE, REPO)
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",
-                "vg": "theano_pyglm_tpu/ops/pallas_kernels.py:100"}
-    names = {"fwd": "K1 fused_ll_fwd", "vg": "K2 fused_ll_vg"}
+                "vg": "theano_pyglm_tpu/ops/pallas_kernels.py:100",
+                "fwd_chains": "theano_pyglm_tpu/ops/pallas_kernels.py:213",
+                "vg_chains": "theano_pyglm_tpu/ops/pallas_kernels.py:164"}
+    names = {"fwd": "K1 fused_ll_fwd", "vg": "K2 fused_ll_vg",
+             "fwd_chains": "K3-fwd fused_ll_fwd_chains", "vg_chains": "K3-vg fused_ll_vg_chains"}
     # library_ms is null: no single PyTorch call computes the fused value or value+grad
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
          "launches": launches[k], **kstats[k]}
-        for k in ("fwd", "vg")
+        for k in KERNELS
     ]}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import theano_pyglm_torch.utils.ks as ks_t
 import theano_pyglm_tpu as tpu
 import theano_pyglm_tpu.utils.diagnostics as diag_j
 import theano_pyglm_tpu.utils.ks as ks_j
-from theano_pyglm_torch.inference.mcmc import init_mcmc_state
+from theano_pyglm_torch.inference.mcmc import chain_state, init_mcmc_state, stack_states
 from theano_pyglm_torch.parallel.chains import _share_adaptation, gibbs_sample_chains
 from theano_pyglm_torch.scripts import rgc_flagship
 from theano_pyglm_tpu.parallel.chains import _share_adaptation as share_j
@@ -123,7 +123,9 @@ def test_share_adaptation_matches_jax(n_chains):
     (mirrors tests/test_adaptation.py)."""
     _, states_j, states_t = _chain_states(n_chains)
     out_j = share_j(states_j)
-    out_t = _share_adaptation(states_t)
+    batched = stack_states(states_t)
+    shared = _share_adaptation(batched)
+    out_t = [chain_state(shared, c) for c in range(n_chains)]
     assert len(out_t) == n_chains
     for c, st in enumerate(out_t):
         for name in ("glm", "imp"):
@@ -132,8 +134,8 @@ def test_share_adaptation_matches_jax(n_chains):
             np.testing.assert_allclose(float(h.step_size), float(hj.step_size[c]), rtol=1e-12)
             for k in h.scale:
                 np.testing.assert_allclose(to_np(h.scale[k]), np.asarray(hj.scale[k][c]), rtol=1e-12)
-        for k in st["params"]:
-            assert st["params"][k] is states_t[c]["params"][k]
+    for k in shared["params"]:
+        assert shared["params"][k] is batched["params"][k]
 
 
 def _small_problem(N=4, T=1000):

@@ -28,6 +28,17 @@ variant: ``update_glm_laplace`` (none, basis), ``update_glm_laplace_st``
 (spatiotemporal: two bilinear sub-blocks) and ``update_glm_laplace_shared``
 (shared: per-neuron [bias, gain], then the global filter). The bf16 design
 branch of ψ waits for the bf16 designs (ROADMAP.md, queue 2, K4).
+
+Chains: every stage also takes params with a leading chain axis (every leaf
+(C, ...)) and a list of C generators, one per chain, and updates all chains
+at once: the adjacency stages treat chains × rows as C·N rows of one batch
+(X_imp and S shared), the glm Laplace block C·N independent neurons, the
+conjugate, discrete and rotation stages the chains as a batch dimension.
+Each random draw is C draws, each from its chain's generator
+(:func:`~theano_pyglm_torch.ops.distributions.draw`) in the order of the
+one-chain stage, so C chains updated together equal C one-chain updates
+draw for draw. The spatiotemporal and shared glm blocks are not batched:
+the sweep runs them chain by chain (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import torch
 from theano_pyglm_torch.models.components import GAIN_PRIOR_MU, GAIN_PRIOR_SD
 from theano_pyglm_torch.ops.clipping import clip_exponent, exp_clipped, exponent_active
 from theano_pyglm_torch.ops.distributions import (
+    draw,
     sample_beta,
     sample_dirichlet,
     sample_gamma,
@@ -214,11 +226,12 @@ def update_adjacency(generator, pop, params, data, row_batch=None, beta=1.0):
         return params
     S, dt, nlin, obs = data["S"], pop.dt, pop.nlin, pop.observation
     N = pop.N
-    w_eff = pop.impulse.effective(params)  # (N_post, N_pre, B)
-    I_rest = rest_current(pop, params, data)  # (T, N)
+    lead = params["A"].shape[:-2]  # (C,) for chains: their rows are C·N rows
+    w_eff = pop.impulse.effective(params)  # ([C,] N_post, N_pre, B)
+    I_rest = rest_current(pop, params, data)  # ([C,] T, N)
     W = pop.weights.effective_W(params)
     logit_prior = _logit_prior(pop.graph.edge_prob(params))
-    u = torch.rand((N, N), generator=generator, dtype=S.dtype, device=S.device)
+    u = draw(generator, lambda g: torch.rand((N, N), generator=g, dtype=S.dtype, device=S.device))
 
     def ll_of(S_n, I_n):  # (R, T) -> (R,)
         return obs.log_likelihood(S_n, I_n, nlin, dt).sum(-1)
@@ -238,10 +251,23 @@ def update_adjacency(generator, pop, params, data, row_batch=None, beta=1.0):
 
     (A_new,) = _map_rows(
         row_update,
-        (params["A"], W, w_eff, S.T.contiguous(), I_rest.T.contiguous(), logit_prior, u),
+        (_rows(params["A"], lead), _rows(W, lead), _rows(w_eff, lead), _time_rows(S, lead),
+         _time_rows(I_rest, lead), _rows(logit_prior, lead), _rows(u, lead)),
         row_batch,
     )
-    return {**params, "A": A_new}
+    return {**params, "A": A_new.view(*lead, N, N)}
+
+
+def _rows(x, lead):
+    """The (C·N, ...) rows of a (*lead, N, ...) per-row tensor."""
+    return x.reshape(-1, *x.shape[len(lead) + 1 :])
+
+
+def _time_rows(x, lead):
+    """The (C·N, T) rows of a ([C,] T, N) time-major tensor; one without the
+    chain axis (the spikes) serves every chain."""
+    xt = x.transpose(-1, -2)
+    return xt.expand(*lead, *xt.shape[-2:]).reshape(-1, xt.shape[-1])
 
 
 def _grad_and_curvature(fn, x):
@@ -270,57 +296,59 @@ def update_adjacency_collapsed(
     The exp-Poisson model shapes its proposal (Newton, evidence) by closed
     forms on a time subsample of at most ``SUBSAMPLE_T`` bins:
     ``SUBSAMPLE_T // SUBSAMPLE_BLK`` contiguous blocks at random offsets
-    drawn once per call, gathered as one index. Every other model uses the
-    exact ΔLL over the full T, with Newton's derivatives by autograd. Returns
-    the new params, and with ``return_accept`` also the mean acceptance over
-    all N² entries.
+    drawn once per call (per chain), gathered as one index. Every other
+    model uses the exact ΔLL over the full T, with Newton's derivatives by
+    autograd. Returns the new params, and with ``return_accept`` also the
+    mean acceptance over all N² entries (of each chain).
     """
     f, dev = pop.dtype, pop.device
+    lead = params["A"].shape[:-2]  # (C,) for chains: their rows are C·N rows
     if pop.graph.fixed_A:
-        one = torch.ones((), dtype=f, device=dev)
+        one = torch.ones(lead, dtype=f, device=dev)
         return (params, one) if return_accept else params
     if not pop.weights.has_W:
         out = update_adjacency(generator, pop, params, data, row_batch=row_batch, beta=beta)
-        one = torch.ones((), dtype=f, device=dev)
+        one = torch.ones(lead, dtype=f, device=dev)
         return (out, one) if return_accept else out
 
     S, dt, nlin, obs = data["S"], pop.dt, pop.nlin, pop.observation
     N = pop.N
-    w_eff_all = pop.impulse.effective(params)  # (N_post, N_pre, B)
+    w_eff_all = pop.impulse.effective(params)  # ([C,] N_post, N_pre, B)
     I_rest = rest_current(pop, params, data)
-    MU, SIG = pop.weights.prior_mu_sigma(params)
+    MU, SIG = (x.expand_as(params["W"]) for x in pop.weights.prior_mu_sigma(params))
     logit_prior = _logit_prior(pop.graph.edge_prob(params))
-    mean = data.get("_X_imp_mean")
     fast = nlin.name == "exp" and obs.name == "poisson"
 
     T_full = int(S.shape[0])
     T_sub = min(T_full, SUBSAMPLE_T)
     use_sub = fast and T_sub < T_full
+    sub_rows = ()
     if use_sub:
         if "X_imp" not in data:
-            _row_psi(pop, data, w_eff_all[0])  # raises the designed message
+            _row_psi(pop, data, w_eff_all.reshape(-1, N, pop.B_imp)[0])  # raises the designed message
         blk = SUBSAMPLE_BLK
         n_blk = T_sub // blk
-        offs = torch.randint(0, T_full - blk, (n_blk,), generator=generator, device=dev)
-        idx = (offs[:, None] + torch.arange(blk, device=dev)).reshape(-1)
-        X_sub = data["X_imp"].index_select(0, idx)  # (n_blk·blk, N, B)
-        S_sub, I_rest_sub = S.index_select(0, idx), I_rest.index_select(0, idx)
+        offs = draw(generator, lambda g: torch.randint(0, T_full - blk, (n_blk,), generator=g, device=dev))
+        idx = (offs[..., :, None] + torch.arange(blk, device=dev)).reshape(*lead, -1)
+        # each row gathers its chain's subsample from its full-T ψ, S and I_rest
+        sub_rows = (_rows(idx[..., None, :].expand(*lead, N, T_sub), lead),)
         scale_sub = T_full / T_sub
     else:
-        S_sub, I_rest_sub = S, I_rest
         scale_sub = 1.0
     # every draw of the sweep, entry-indexed: birth, mixture, MH uniforms and
     # the one normal shared by the mutually exclusive weight proposals
-    u_a, u_mix, u_acc = torch.rand((3, N, N), generator=generator, dtype=f, device=dev)
-    z = torch.randn((N, N), generator=generator, dtype=f, device=dev)
+    u3 = draw(generator, lambda g: torch.rand((3, N, N), generator=g, dtype=f, device=dev))
+    u_a, u_mix, u_acc = u3.unbind(-3)
+    z = draw(generator, lambda g: torch.randn((N, N), generator=g, dtype=f, device=dev))
 
-    def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, mu_n, sig_n, logit_n,
-                   S_sub_n, I_rest_sub_n, ua_n, umix_n, uacc_n, z_n):
+    def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, mu_n, sig_n, logit_n, ua_n, umix_n, uacc_n, z_n, *idx_n):
         psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T)
         I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n, A_n * W_n)
         if fast:
             if use_sub:
-                psi_sub = _psi_from_X(X_sub, mean, w_eff_n)
+                (idx_n,) = idx_n  # (R, T_sub) bins of each row's chain
+                psi_sub = psi_n.gather(-1, idx_n.expand(psi_n.shape[0], *idx_n.shape))
+                S_sub_n, I_rest_sub_n = S_n.gather(-1, idx_n), I_rest_n.gather(-1, idx_n)
                 I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub, A_n * W_n)
             else:
                 psi_sub, S_sub_n = psi_n, S_n
@@ -439,13 +467,14 @@ def update_adjacency_collapsed(
 
     A_new, W_new, acc = _map_rows(
         row_update,
-        (params["A"], params["W"], w_eff_all, S.T.contiguous(), I_rest.T.contiguous(), MU, SIG,
-         logit_prior, S_sub.T.contiguous(), I_rest_sub.T.contiguous(), u_a, u_mix, u_acc, z),
+        tuple(_rows(x, lead) for x in (params["A"], params["W"], w_eff_all)) + (
+            _time_rows(S, lead), _time_rows(I_rest, lead)) + tuple(
+            _rows(x, lead) for x in (MU, SIG, logit_prior, u_a, u_mix, u_acc, z)) + sub_rows,
         row_batch,
         graph=fast,  # the autograd branches are not captured
     )
-    out = {**params, "A": A_new, "W": W_new}
-    return (out, acc.mean()) if return_accept else out
+    out = {**params, "A": A_new.view(*lead, N, N), "W": W_new.view(*lead, N, N)}
+    return (out, acc.view(*lead, N).mean(-1)) if return_accept else out
 
 
 # ---------------------------------------------------------------------------
@@ -488,10 +517,11 @@ def _design_currents(I0, Phi, theta) -> torch.Tensor:
     """(T, N) currents I0 + Φ θ_n of a linear block: Φ is (T, D), shared by
     the neurons, or (N, T, D), one design per neuron (the transpose of the
     JAX package's (T, N, D): each neuron's design is contiguous, so its
-    products are plain batched matrix products); θ is (N, D)."""
+    products are plain batched matrix products); θ is (N, D). With a shared
+    Φ, θ may be (C, N, D), C chains, giving (C, T, N)."""
     if Phi.ndim == 3:
         return I0 + torch.bmm(Phi, theta[:, :, None])[..., 0].T
-    return I0 + Phi @ theta.T
+    return I0 + Phi @ theta.transpose(-1, -2)
 
 
 def _time_chunks(T: int) -> int:
@@ -519,9 +549,20 @@ def _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta=1.0
     Cholesky factor C of −H* (C Cᵀ = −H*, NaN where −H* is not positive
     definite). The design Φ is (T, D) or (N, T, D) (:func:`_design_currents`);
     ``prior_mu``/``prior_sd`` broadcast to θ's (N, D). Returns (θ* (N, D),
-    C (N, D, D))."""
+    C (N, D, D)); with a shared Φ and I0 of C chains (C, T, N), each with a
+    leading chain axis."""
     prior_prec = 1.0 / (prior_sd * prior_sd)
     eye_prec = torch.diag_embed(prior_prec.expand_as(theta0))
+    if Phi.ndim == 2:
+        T, D = Phi.shape
+        # φ_t φ_tᵀ of every bin, flattened: with the (chain ×) neuron rows of
+        # d2 as the other operand, all Hessians are one matrix product that
+        # reduces T (a batched product per neuron reduces T in one thread
+        # block each, ~10× slower on an H100 at the flagship)
+        outer = (Phi[:, :, None] * Phi[:, None, :]).reshape(T, D * D)
+
+        def rows(x):  # ([C,] T, N) -> (C·N, T)
+            return x.transpose(-1, -2).reshape(-1, T)
 
     def grad_negH(theta):
         d1, d2 = _bin_ll_derivs(S, _design_currents(I0, Phi, theta), obs, nlin, dt)
@@ -531,8 +572,9 @@ def _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta=1.0
             grad = torch.bmm(d1.T[:, None, :], Phi)[:, 0]
             negH = -_weighted_gram(Phi, d2.T)
         else:
-            grad = d1.T @ Phi
-            negH = -((d2.T[:, :, None] * Phi[None]).transpose(1, 2) @ Phi)  # Σ_t d2·φφᵀ per neuron
+            lead, N = d1.shape[:-2], d1.shape[-1]
+            grad = (rows(d1) @ Phi).view(*lead, N, D)
+            negH = -(rows(d2) @ outer).view(*lead, N, D, D)  # Σ_t d2·φφᵀ per neuron (of each chain)
         return beta * grad - (theta - prior_mu) * prior_prec, beta * negH + eye_prec
 
     theta = theta0
@@ -547,27 +589,29 @@ def _independence_mh(generator, log_target, theta_cur, theta_star, C, prior_mu, 
     """Independence MH of K independent D-vectors (the neurons of a block,
     or one global filter) from their Laplace fits (θ*, C): the proposal is
     the defensive mixture 0.9·N(θ*, (−H*)⁻¹) + 0.1·prior. ``log_target``
-    maps (K, D) to (K,). Returns (θ_new (K, D), accept (K,) bool).
+    maps (K, D) to (K,). Returns (θ_new (K, D), accept (K,) bool). With a
+    list of C generators, every argument but the priors carries a leading
+    chain axis, (C, K, D), and so do the results.
 
     A non-finite current target or reverse density is an escape hatch
     (accept any finite proposal); a non-finite proposal is rejected. All of
     it is tensor arithmetic, so a NaN factor never reaches the host.
     """
-    K, D = theta_cur.shape
-    f = theta_cur.dtype
-    log_det_C = torch.log(torch.diagonal(C, dim1=1, dim2=2)).sum(1)
-    z = torch.randn((K, D), generator=generator, dtype=f, device=theta_cur.device)
-    u_mix, u_acc = torch.rand((2, K), generator=generator, dtype=f, device=theta_cur.device)
+    K, D = theta_cur.shape[-2:]
+    f, dev = theta_cur.dtype, theta_cur.device
+    log_det_C = torch.log(torch.diagonal(C, dim1=-2, dim2=-1)).sum(-1)
+    z = draw(generator, lambda g: torch.randn((K, D), generator=g, dtype=f, device=dev))
+    u_mix, u_acc = draw(generator, lambda g: torch.rand((2, K), generator=g, dtype=f, device=dev)).unbind(-2)
     # θ' = θ* + C⁻ᵀ z  ⇒  cov = C⁻ᵀ C⁻¹ = (−H*)⁻¹
-    delta = torch.linalg.solve_triangular(C.transpose(1, 2), z[..., None], upper=True)[..., 0]
+    delta = torch.linalg.solve_triangular(C.transpose(-1, -2), z[..., None], upper=True)[..., 0]
     # z serves both mutually exclusive branches: each alone is the right draw
-    theta_prop = torch.where((u_mix < 0.9)[:, None], theta_star + delta, prior_mu + prior_sd * z)
+    theta_prop = torch.where((u_mix < 0.9)[..., None], theta_star + delta, prior_mu + prior_sd * z)
 
     def log_q(theta):
-        r = torch.einsum("nij,ni->nj", C, theta - theta_star)  # Cᵀ(θ−θ*)
-        lq_hat = log_det_C - 0.5 * (r * r).sum(1) - D * _HALF_LOG2PI
+        r = torch.einsum("...ij,...i->...j", C, theta - theta_star)  # Cᵀ(θ−θ*)
+        lq_hat = log_det_C - 0.5 * (r * r).sum(-1) - D * _HALF_LOG2PI
         zp = (theta - prior_mu) / prior_sd
-        lq_prior = (-0.5 * zp * zp - torch.log(prior_sd) - _HALF_LOG2PI).sum(1)
+        lq_prior = (-0.5 * zp * zp - torch.log(prior_sd) - _HALF_LOG2PI).sum(-1)
         return torch.logaddexp(math.log(0.9) + lq_hat, math.log(0.1) + lq_prior)
 
     t_prop = log_target(theta_prop)
@@ -580,7 +624,7 @@ def _independence_mh(generator, log_target, theta_cur, theta_star, C, prior_mu, 
     log_alpha = torch.where(fixable, torch.inf, log_alpha)
     log_alpha = torch.where(torch.isnan(log_alpha), -torch.inf, log_alpha)
     accept = torch.log(u_acc) < log_alpha
-    return torch.where(accept[:, None], theta_prop, theta_cur), accept
+    return torch.where(accept[..., None], theta_prop, theta_cur), accept
 
 
 def _laplace_mh_step(
@@ -591,9 +635,9 @@ def _laplace_mh_step(
     β·LL_n + log prior as the target. Returns (θ_new (N, D), accept (N,))."""
 
     def log_target(theta):
-        ll = obs.log_likelihood(S, _design_currents(I0, Phi, theta), nlin, dt).sum(0)  # (N,)
+        ll = obs.log_likelihood(S, _design_currents(I0, Phi, theta), nlin, dt).sum(-2)  # ([C,] N)
         zp = (theta - prior_mu) / prior_sd
-        return beta * ll - 0.5 * (zp * zp).sum(1)
+        return beta * ll - 0.5 * (zp * zp).sum(-1)
 
     return _independence_mh(generator, log_target, theta_cur, theta_star, C, prior_mu, prior_sd)
 
@@ -654,9 +698,9 @@ def _glm_block(pop, params, data):
     ones = torch.ones((S.shape[0], 1), dtype=S.dtype, device=S.device)
     Phi = torch.cat([ones, data["X_stim"].to(S.dtype)], 1) if "X_stim" in data else ones
     D = Phi.shape[1]
-    theta_cur = params["bias"][:, None]
+    theta_cur = params["bias"][..., None]
     if D > 1:
-        theta_cur = torch.cat([theta_cur, params["w_stim"]], 1)
+        theta_cur = torch.cat([theta_cur, params["w_stim"]], -1)
     return (Phi, _coupling_current(pop, params, data), theta_cur, *_glm_prior_rows(pop, D))
 
 
@@ -675,18 +719,19 @@ def update_glm_laplace(
     return_accept: bool = False,
 ):
     """Laplace independence-MH for the (bias, w_stim) block of the none and
-    basis stimulus variants (design φ_t = [1, x_t]). With ``return_accept``
-    also the fraction of neurons that accepted."""
+    basis stimulus variants (design φ_t = [1, x_t]); chains are C·N
+    independent neurons. With ``return_accept`` also the fraction of
+    neurons that accepted (of each chain)."""
     Phi, I0, theta_cur, prior_mu, prior_sd = _glm_block(pop, params, data)
     theta_new, accept = _laplace_mh_block(
         generator, data["S"], pop.dt, pop.observation, pop.nlin, I0, Phi, theta_cur, theta0,
         prior_mu, prior_sd, beta=beta, n_newton=n_newton,
     )
-    out = {**params, "bias": theta_new[:, 0]}
+    out = {**params, "bias": theta_new[..., 0]}
     if Phi.shape[1] > 1:
-        out["w_stim"] = theta_new[:, 1:]
+        out["w_stim"] = theta_new[..., 1:]
     if return_accept:
-        return out, accept.to(theta_new.dtype).mean()
+        return out, accept.to(theta_new.dtype).mean(-1)
     return out
 
 
@@ -877,9 +922,10 @@ def refresh_disconnected_weights(generator, pop, params):
     """Resample W[n,m] | A[n,m]=0 from its prior (the exact conditional)."""
     if not pop.weights.has_W:
         return params
-    MU, SIG = pop.weights.prior_mu_sigma(params)
-    W_prior = sample_gaussian(generator, MU, SIG, dtype=params["W"].dtype)
-    return {**params, "W": torch.where(params["A"] > 0, params["W"], W_prior)}
+    W = params["W"]
+    MU, SIG = (x.expand_as(W) for x in pop.weights.prior_mu_sigma(params))
+    W_prior = draw(generator, lambda g, mu, sig: sample_gaussian(g, mu, sig, dtype=W.dtype), MU, SIG)
+    return {**params, "W": torch.where(params["A"] > 0, W, W_prior)}
 
 
 def _betaln(a, b):
@@ -895,9 +941,9 @@ def _sbm_hyperparams(pop):
 
 
 def _onehot(y, K: int, dtype) -> torch.Tensor:
-    """(N, K) one-hot rows of the types, built on the device
+    """([C,] N, K) one-hot rows of the types, built on the device
     (``torch.nn.functional.one_hot`` checks its indices on the host)."""
-    return (y[:, None] == torch.arange(K, device=y.device)).to(dtype)
+    return (y[..., None] == torch.arange(K, device=y.device)).to(dtype)
 
 
 def _collapsed_type_logits(A, y, n: int, K: int, alpha0: float, b0: float, b1: float) -> torch.Tensor:
@@ -909,26 +955,28 @@ def _collapsed_type_logits(A, y, n: int, K: int, alpha0: float, b0: float, b1: f
     the other neurons, and (e', p') add neuron n's edges and pairs, as class
     k, to the blocks of row k and of column k (and its self-pair to block
     (k, k)). Differences of these logits are differences of the log
-    marginal Σ lgamma(α0 + c) + Σ betaln(b0 + E, b1 + P − E)."""
-    N, f = A.shape[0], A.dtype
+    marginal Σ lgamma(α0 + c) + Σ betaln(b0 + E, b1 + P − E). A (C, N, N)
+    and y (C, N) of C chains give (C, K)."""
+    N, f = A.shape[-1], A.dtype
     mask = (torch.arange(N, device=A.device) != n).to(f)
     onehot = _onehot(y, K, f) * mask[:, None]  # n excluded
-    cnt = onehot.sum(0)
+    cnt = onehot.sum(-2)
     # block counts over ordered pairs not involving n: onehot's zeroed row n
     # drops them on both sides of A
-    E = onehot.T @ A @ onehot
-    P = torch.outer(cnt, cnt)
-    eo = (A[n] * mask) @ onehot  # n → class edges
-    ei = (A[:, n] * mask) @ onehot  # class → n edges
+    E = (onehot.transpose(-1, -2) @ A @ onehot).unsqueeze(-3)
+    P = (cnt[..., :, None] * cnt[..., None, :]).unsqueeze(-3)
+    eo = torch.einsum("...m,...mk->...k", A[..., n, :] * mask, onehot)  # n → class edges
+    ei = torch.einsum("...m,...mk->...k", A[..., :, n] * mask, onehot)  # class → n edges
     eye = torch.eye(K, dtype=f, device=A.device)
     same = eye[:, :, None] * eye[:, None, :]
     # [candidate c, block row, block col]: row c gains (eo, cnt), column c
     # gains (ei, cnt), block (c, c) also the self-pair (A[n, n], 1)
-    dE = eye[:, :, None] * eo[None, None, :] + eye[:, None, :] * ei[None, :, None] + same * A[n, n]
-    dP = eye[:, :, None] * cnt[None, None, :] + eye[:, None, :] * cnt[None, :, None] + same
+    dE = (eye[:, :, None] * eo[..., None, None, :] + eye[:, None, :] * ei[..., None, :, None]
+          + same * A[..., n, n, None, None, None])
+    dP = eye[:, :, None] * cnt[..., None, None, :] + eye[:, None, :] * cnt[..., None, :, None] + same
     base = _betaln(b0 + E, b1 + (P - E))
     new = _betaln(b0 + E + dE, b1 + (P + dP) - (E + dE))
-    return torch.log(alpha0 + cnt) + (new - base).sum((1, 2))
+    return torch.log(alpha0 + cnt) + (new - base).sum((-2, -1))
 
 
 def update_sbm_types_collapsed(generator, pop, params):
@@ -942,13 +990,13 @@ def update_sbm_types_collapsed(generator, pop, params):
         return params
     K, alpha0, b0, b1 = _sbm_hyperparams(pop)
     A, y = params["A"], params["y"]
-    N, f = A.shape[0], A.dtype
-    u = torch.rand((N, K), generator=generator, dtype=f, device=A.device)
+    N, f = A.shape[-1], A.dtype
+    u = draw(generator, lambda g: torch.rand((N, K), generator=g, dtype=f, device=A.device))
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(f).tiny)))
     idx = torch.arange(N, device=A.device)
     for n in range(N):
-        y_n = torch.argmax(_collapsed_type_logits(A, y, n, K, alpha0, b0, b1) + gumbel[n])
-        y = torch.where(idx == n, y_n, y)
+        y_n = torch.argmax(_collapsed_type_logits(A, y, n, K, alpha0, b0, b1) + gumbel[..., n, :], dim=-1)
+        y = torch.where(idx == n, y_n[..., None], y)
     return {**params, "y": y}
 
 
@@ -962,11 +1010,11 @@ def update_sbm_hypers(generator, pop, params):
     K, alpha0, b0, b1 = _sbm_hyperparams(pop)
     A = params["A"]
     onehot = _onehot(params["y"], K, A.dtype)
-    counts = onehot.sum(0)
-    pi = sample_dirichlet(generator, alpha0 + counts)
-    edges = onehot.T @ A @ onehot  # (K, K) edge counts between blocks
-    pairs = torch.outer(counts, counts)
-    Bm = sample_beta(generator, b0 + edges, b1 + (pairs - edges))
+    counts = onehot.sum(-2)
+    pi = draw(generator, sample_dirichlet, alpha0 + counts)
+    edges = onehot.transpose(-1, -2) @ A @ onehot  # ([C,] K, K) edge counts between blocks
+    pairs = counts[..., :, None] * counts[..., None, :]
+    Bm = draw(generator, sample_beta, b0 + edges, b1 + (pairs - edges))
     return {**params, "pi": pi, "Bm": torch.clamp(Bm, 1e-6, 1.0 - 1e-6)}
 
 
@@ -979,8 +1027,9 @@ def update_er_rho(generator, pop, params):
         return params
     a0, b0 = (float(v) for v in pop.spec["network"]["graph"].get("rho_prior", (1.0, 1.0)))
     A = params["A"]
-    n_edges = A.sum()
-    rho = sample_beta(generator, a0 + n_edges, b0 + (A.numel() - n_edges))
+    n_edges = A.sum((-2, -1))
+    n_pairs = A.shape[-1] * A.shape[-2]
+    rho = draw(generator, sample_beta, a0 + n_edges, b0 + (n_pairs - n_edges))
     return {**params, "rho": torch.clamp(rho, 1e-6, 1.0 - 1e-6)}
 
 
@@ -998,16 +1047,16 @@ def update_weight_hypers(generator, pop, params):
     w = params["W"]
     off = 1.0 - torch.eye(N, dtype=w.dtype, device=w.device)
     n = N * (N - 1)
-    wbar = (w * off).sum() / n
-    ss = (off * (w - wbar) ** 2).sum()
+    wbar = (w * off).sum((-2, -1)) / n
+    ss = (off * (w - wbar[..., None, None]) ** 2).sum((-2, -1))
 
     k_n = k0 + n
     m_n = (k0 * m0 + n * wbar) / k_n
     a_n = a0 + n / 2.0
     b_n = b0 + 0.5 * ss + k0 * n * (wbar - m0) ** 2 / (2.0 * k_n)
 
-    var = b_n / sample_gamma(generator, a_n, 1.0, dtype=w.dtype)
-    mu_new = m_n + torch.sqrt(var / k_n) * sample_gaussian(generator, 0.0, 1.0, (), w.dtype)
+    var = b_n / draw(generator, lambda g: sample_gamma(g, a_n, 1.0, dtype=w.dtype))
+    mu_new = m_n + torch.sqrt(var / k_n) * draw(generator, lambda g: sample_gaussian(g, 0.0, 1.0, (), w.dtype))
     return {**params, "W_mu": mu_new, "W_sigma": torch.sqrt(var)}
 
 
@@ -1022,15 +1071,16 @@ def update_latent_rotation(generator, pop, params):
         return params
     locs = params["locs"]
     D = locs.shape[-1]
+    f, dev = locs.dtype, locs.device
     if D == 2:
-        u = torch.rand(2, generator=generator, dtype=locs.dtype, device=locs.device)
-        th = 2.0 * math.pi * u[0]
-        refl = 1.0 - 2.0 * (u[1] >= 0.5).to(locs.dtype)
+        u = draw(generator, lambda g: torch.rand(2, generator=g, dtype=f, device=dev))
+        th = 2.0 * math.pi * u[..., 0]
+        refl = 1.0 - 2.0 * (u[..., 1] >= 0.5).to(f)
         c, s = torch.cos(th), torch.sin(th)
         # rotation by th, times diag(1, refl)
-        Qm = torch.stack([torch.stack([c, -s * refl]), torch.stack([s, c * refl])])
+        Qm = torch.stack([torch.stack([c, -s * refl], -1), torch.stack([s, c * refl], -1)], -2)
     else:
-        G = torch.randn((D, D), generator=generator, dtype=locs.dtype, device=locs.device)
+        G = draw(generator, lambda g: torch.randn((D, D), generator=g, dtype=f, device=dev))
         Qm, R = torch.linalg.qr(G)
-        Qm = Qm * torch.sign(torch.diagonal(R))[None, :]
+        Qm = Qm * torch.sign(torch.diagonal(R, dim1=-2, dim2=-1)).unsqueeze(-2)
     return {**params, "locs": locs @ Qm}

@@ -16,6 +16,14 @@ log-density (under ``torch.no_grad``) runs K1. Warmup adapts
 Leapfrog runs in the rescaled coordinates: kick p += ½·ε·s∘∇logp, drift
 q += ε·s∘p with s the coordinate scales — HMC with mass matrix M = diag(1/s²).
 Random draws take a ``torch.Generator`` and happen on its device.
+
+Chains: a state whose ``log_prob`` is (C,) holds C independent chains on a
+leading axis of every leaf, with a step size, dual-averaging state, Welford
+statistics and accept rate per chain; ``logp`` then returns (C,) and the
+draws take one generator per chain (a list), each chain's drawn in the
+order of a one-chain transition (:func:`~theano_pyglm_torch.ops.distributions.draw`).
+Accept and reject are ``torch.where`` per chain: nothing reads back to the
+host.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from theano_pyglm_torch.ops.distributions import draw
 
 __all__ = ["HMCState", "hmc_init", "hmc", "hmc_adaptive_step", "reset_variance", "apply_mass_matrix"]
 
@@ -50,6 +60,14 @@ def _map(fn, *trees: dict) -> dict:
     return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
 
 
+def _per_chain(x, leaf):
+    """A per-chain value (a number, a scalar or a (C,) tensor) shaped to
+    broadcast against a (C, ...) leaf."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return x.reshape(x.shape + (1,) * (leaf.ndim - x.ndim))
+
+
 @torch.no_grad()
 def hmc_init(position: dict, logp_fn: Callable, step_size: float = 0.01) -> HMCState:
     lp = logp_fn(position)
@@ -74,7 +92,8 @@ def hmc_init(position: dict, logp_fn: Callable, step_size: float = 0.01) -> HMCS
 def _grad(logp_fn: Callable, q: dict) -> dict:
     with torch.enable_grad():
         qq = {k: v.detach().requires_grad_(True) for k, v in q.items()}
-        grads = torch.autograd.grad(logp_fn(qq), list(qq.values()), materialize_grads=True)
+        # chains are independent: the gradient of their sum is each chain's own
+        grads = torch.autograd.grad(logp_fn(qq).sum(), list(qq.values()), materialize_grads=True)
     return dict(zip(qq, grads))
 
 
@@ -83,17 +102,18 @@ def _leapfrog(logp_fn, q, p, eps, scale, n_steps):
     """n_steps preconditioned leapfrog steps; returns (q', p', logp(q'))."""
 
     def half_kick(p, g):
-        return _map(lambda p_, s_, g_: p_ + 0.5 * eps * s_ * g_, p, scale, g)
+        return _map(lambda p_, s_, g_: p_ + 0.5 * _per_chain(eps, p_) * s_ * g_, p, scale, g)
 
     for _ in range(n_steps):
         p = half_kick(p, _grad(logp_fn, q))
-        q = _map(lambda q_, s_, p_: q_ + eps * s_ * p_, q, scale, p)
+        q = _map(lambda q_, s_, p_: q_ + _per_chain(eps, q_) * s_ * p_, q, scale, p)
         p = half_kick(p, _grad(logp_fn, q))
     return q, p, logp_fn(q)
 
 
-def _kinetic(p: dict) -> torch.Tensor:
-    return 0.5 * sum(torch.sum(x * x) for x in p.values())
+def _kinetic(p: dict, n_lead: int) -> torch.Tensor:
+    """½ Σ p², summed within each of the chains on the ``n_lead`` leading axes."""
+    return 0.5 * sum((x * x).reshape(x.shape[:n_lead] + (-1,)).sum(-1) for x in p.values())
 
 
 @torch.no_grad()
@@ -103,14 +123,15 @@ def _hmc_transition(logp_fn, q_curr, log_prob_curr, step_size, n_steps, scale, p
     Returns (q_new, log_prob_new, accept_prob).
     """
     q_new, p_new, lp_new = _leapfrog(logp_fn, q_curr, p0, step_size, scale, n_steps)
-    h0 = -log_prob_curr + _kinetic(p0)
-    h1 = -lp_new + _kinetic(p_new)
+    n_lead = log_prob_curr.ndim
+    h0 = -log_prob_curr + _kinetic(p0, n_lead)
+    h1 = -lp_new + _kinetic(p_new, n_lead)
     log_accept = torch.clamp(h0 - h1, max=0.0)
     # Guard NaN trajectories (divergences): always reject.
     log_accept = torch.where(torch.isfinite(log_accept), log_accept, -torch.inf)
     accept_prob = torch.exp(log_accept)
     take = u < accept_prob
-    q_out = _map(lambda a, b: torch.where(take, a, b), q_new, q_curr)
+    q_out = _map(lambda a, b: torch.where(_per_chain(take, a), a, b), q_new, q_curr)
     lp_out = torch.where(take, lp_new, log_prob_curr)
     return q_out, lp_out, accept_prob
 
@@ -128,7 +149,8 @@ def hmc(
 
     Args:
       generator: draws the momentum (one normal per coordinate, leaves in
-        sorted key order) and then the acceptance uniform.
+        sorted key order) and then the acceptance uniform; for C chains
+        (``log_prob_curr`` of shape (C,)), a list of C generators.
       logp_fn: log-density over the position dict.
       q_curr / log_prob_curr: current position and cached log-density.
       step_size: leapfrog step size (float or 0-d tensor).
@@ -140,14 +162,15 @@ def hmc(
     """
     if scale is None:
         scale = _map(torch.ones_like, q_curr)
-    dev = generator.device
-    p0 = {
-        k: torch.randn(q_curr[k].shape, generator=generator, dtype=q_curr[k].dtype, device=dev).to(q_curr[k].device)
-        for k in sorted(q_curr)
-    }
-    p0 = {k: p0[k] for k in q_curr}
     lp = torch.as_tensor(log_prob_curr)
-    u = torch.rand((), generator=generator, dtype=lp.dtype, device=dev).to(lp.device)
+    n_lead = lp.ndim
+
+    def normal(x):
+        return lambda g: torch.randn(x.shape[n_lead:], generator=g, dtype=x.dtype, device=g.device)
+
+    p0 = {k: draw(generator, normal(q_curr[k])).to(q_curr[k].device) for k in sorted(q_curr)}
+    p0 = {k: p0[k] for k in q_curr}
+    u = draw(generator, lambda g: torch.rand((), generator=g, dtype=lp.dtype, device=g.device)).to(lp.device)
     return _hmc_transition(logp_fn, q_curr, lp, step_size, n_steps, scale, p0, u)
 
 
@@ -193,14 +216,15 @@ def hmc_adaptive_step(
     nv = torch.clamp(n_var, min=1.0)
 
     def winsorize(x, m, m2):
-        std = torch.sqrt(m2 / torch.clamp(nv - 1.0, min=1.0))
+        n = _per_chain(nv, x)
+        std = torch.sqrt(m2 / torch.clamp(n - 1.0, min=1.0))
         lim = 6.0 * torch.clamp(std, min=1e-8)
         r = x - m
-        r = torch.where(nv > 10.0, torch.clamp(r, -lim, lim), r)
+        r = torch.where(n > 10.0, torch.clamp(r, -lim, lim), r)
         return m + r
 
     q_w = _map(winsorize, q, state.pos_mean, state.pos_m2)
-    mean_new = _map(lambda m, x: m + (x - m) / nv, state.pos_mean, q_w)
+    mean_new = _map(lambda m, x: m + (x - m) / _per_chain(nv, x), state.pos_mean, q_w)
     m2_new = _map(lambda m2, m_old, m_new, x: m2 + (x - m_old) * (x - m_new),
                   state.pos_m2, state.pos_mean, mean_new, q_w)
     return HMCState(
@@ -228,7 +252,7 @@ def apply_mass_matrix(
     n = torch.clamp(state.n_var, min=1.0)
 
     def mk(m2):
-        nn = n.reshape(n.shape + (1,) * (m2.ndim - n.ndim))
+        nn = _per_chain(n, m2)
         w = nn / (nn + 5.0)
         var = m2 / torch.clamp(nn - 1.0, min=1.0)
         var = w * var + (1.0 - w) * 1e-3  # shrink toward a small floor scale

@@ -11,7 +11,12 @@ Port of :mod:`theano_pyglm_tpu.inference.mcmc`. Each sweep interleaves
   5. the Haar rotation of the latent locations.
 
 The sweep is a plain function ``sweep(generator, state, adapt, beta)`` run
-eagerly on the population's device; :func:`gibbs_sample` loops over it.
+eagerly on the population's device; :func:`gibbs_sample` loops over it. It
+takes one chain's state and generator, or the state of C chains on a
+leading axis of every tensor with a list of C generators (the JAX package's
+``vmap`` of the sweep, written out): every stage then updates all chains at
+once, and each chain's generator makes the draws it would make alone.
+:func:`gibbs_sample` is that batched sweep at C = 1.
 Warmup follows Stan-style expanding adaptation windows
 (:func:`warmup_schedule`). The JAX package's chunk-length alignment
 (``warmup_chunk``/``sampling_chunk``) and its traced ``data`` argument exist
@@ -54,6 +59,8 @@ from theano_pyglm_torch.utils.checkpoints import latest_step, restore_checkpoint
 
 __all__ = [
     "SWEEP_STAGES",
+    "chain_state",
+    "stack_states",
     "make_sweep",
     "gibbs_sample",
     "init_mcmc_state",
@@ -121,8 +128,8 @@ def warmup_schedule(n_warmup: int):
 
 
 def adapt_boundary(state: dict, action: str) -> dict:
-    """Apply a warmup-window boundary action to every HMC block of one
-    chain's state."""
+    """Apply a warmup-window boundary action to every HMC block of a state
+    (one chain's, or all chains' at once)."""
 
     def fn(s):
         if action == "reset":
@@ -162,12 +169,16 @@ def _fresh_block_state(prev: HMCState, position, log_prob) -> HMCState:
 
 
 def init_mcmc_state(pop, params, step_size: float = 0.02) -> dict:
-    """The MCMC state of one chain: params plus one HMCState per continuous
-    block present in ``params``, on the population's device and dtype. The
-    cached log_prob is a placeholder: the sweep re-anchors it."""
+    """The MCMC state: params plus one HMCState per continuous block present
+    in ``params``, on the population's device and dtype. ``params`` of one
+    chain give one chain's state; params of C chains (every leaf (C, ...))
+    the chains' batched state, with a step size, dual-averaging state and
+    accept rate per chain. The cached log_prob is a placeholder: the sweep
+    re-anchors it."""
+    lead = params["A"].shape[:-2]
 
     def full(v):
-        return torch.full((), v, dtype=pop.dtype, device=pop.device)
+        return torch.full(lead, v, dtype=pop.dtype, device=pop.device)
 
     eps = full(step_size)
 
@@ -195,6 +206,40 @@ def init_mcmc_state(pop, params, step_size: float = 0.02) -> dict:
     return state
 
 
+def _map_state(fn, x):
+    """``fn`` on every tensor of a state (dicts, HMCState records)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, HMCState):
+        return HMCState(*(None if v is None else _map_state(fn, v) for v in x))
+    if isinstance(x, dict):
+        return {k: _map_state(fn, v) for k, v in x.items()}
+    return x
+
+
+def chain_state(state: dict, c: int) -> dict:
+    """Chain c of a batched state: every tensor indexed at c on its leading
+    axis (views, no copy), the state one chain alone would have."""
+    return _map_state(lambda t: t[c], state)
+
+
+def stack_states(states) -> dict:
+    """The batched state of a list of one-chain states (or params dicts):
+    every tensor stacked on a new leading chain axis."""
+
+    def stack(xs):
+        first = xs[0]
+        if isinstance(first, torch.Tensor):
+            return torch.stack(xs)
+        if isinstance(first, HMCState):
+            return HMCState(*(None if v is None else stack([x[i] for x in xs]) for i, v in enumerate(first)))
+        if isinstance(first, dict):
+            return {k: stack([x[k] for x in xs]) for k in first}
+        return first
+
+    return stack(list(states))
+
+
 #: update groups accepted by ``make_sweep(stages=...)``, in sweep order
 SWEEP_STAGES = ("glm", "imp", "latent", "hypers", "adjacency", "discrete", "rotation")
 
@@ -205,11 +250,13 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
                diagnostic: bool = False):
     """Build the one-iteration Gibbs sweep (see module docstring).
 
-    Returns ``sweep(generator, state, adapt, beta=1.0) -> state``: ``adapt``
-    (a Python bool) enables step-size adaptation and the Welford statistics
-    (warmup); ``beta`` tempers the likelihood (annealed warmup). The new
-    state also holds ``accept_adjacency``, the birth–death move's mean
-    acceptance in that sweep.
+    Returns ``sweep(generator, state, adapt, beta=1.0) -> state``: one
+    chain's state and generator, or C chains' batched state
+    (:func:`init_mcmc_state` of batched params) and a list of C generators,
+    one per chain. ``adapt`` (a Python bool) enables step-size adaptation
+    and the Welford statistics (warmup); ``beta`` tempers the likelihood
+    (annealed warmup). The new state also holds ``accept_adjacency``, the
+    birth–death move's mean acceptance in that sweep (of each chain).
 
     ``row_batch``: run the adjacency stage ``row_batch`` postsynaptic rows
     at a time (bounded ψ memory). ``fisher_params``: the parameters at which
@@ -252,7 +299,6 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
     # columns, which a diagonal preconditioner cannot undo. An exact change
     # of variables with a constant Jacobian; model and prior are untouched.
     R = whitening_factor(data["X_stim"]) if "X_stim" in data and not glm_laplace else None
-    zero = torch.zeros((), dtype=pop.dtype, device=pop.device)
 
     def sweep(generator, state, adapt: bool, beta: float = 1.0):
         params = state["params"]
@@ -264,11 +310,15 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
                 new_state[name] = state[name]
                 continue
             if name == "glm" and glm_laplace:
-                params, acc = glm_laplace_fn(
-                    generator, pop, params, data, theta0, beta=beta, return_accept=True
-                )
+                if bk_type in _GLM_PER_CHAIN and not isinstance(generator, torch.Generator):
+                    params, acc = _chain_by_chain(glm_laplace_fn, generator, pop, params, data, theta0, beta)
+                else:
+                    params, acc = glm_laplace_fn(
+                        generator, pop, params, data, theta0, beta=beta, return_accept=True
+                    )
                 opt, _ = _partition(params, keys)
-                new_state["glm"] = _fresh_block_state(state["glm"], opt, zero)._replace(accept_rate=acc)
+                new_state["glm"] = _fresh_block_state(state["glm"], opt, torch.zeros_like(acc))._replace(
+                    accept_rate=acc)
                 continue
             opt, frozen = _partition(params, keys)
             if name == "latent":
@@ -318,6 +368,17 @@ _GLM_LAPLACE = {
     "spatiotemporal": update_glm_laplace_st,
     "shared": update_glm_laplace_shared,
 }
+#: the variants whose glm update is not batched over chains: the batched
+#: sweep runs it chain by chain (ROADMAP.md, queue 1)
+_GLM_PER_CHAIN = ("spatiotemporal", "shared")
+
+
+def _chain_by_chain(update, generators, pop, params, data, theta0, beta):
+    """A one-chain glm update on each chain of batched params in turn, with
+    its chain's generator; (params, accept rates), stacked."""
+    outs = [update(g, pop, chain_state(params, c), data, theta0, beta=beta, return_accept=True)
+            for c, g in enumerate(generators)]
+    return stack_states([p for p, _ in outs]), torch.stack([a for _, a in outs])
 
 
 def whitening_factor(X) -> torch.Tensor:
@@ -352,7 +413,7 @@ def _glm_hmc_target(pop, params, data, R, beta):
     def logp(o):
         p = {**frozen, **_whitened(o, R, inverse=True)}
         I = pop.bias.current(p, data) + pop.bkgd.current(p, data) + I_coupling
-        ll = pop.observation.log_likelihood(data["S"], I, pop.nlin, pop.dt).sum()
+        ll = pop.observation.log_likelihood(data["S"], I, pop.nlin, pop.dt).sum((-2, -1))
         return beta * ll + pop.bias.log_prior(p) + pop.bkgd.log_prior(p)
 
     return _whitened(opt, R), logp
@@ -383,23 +444,22 @@ def anneal_schedule(n_warmup: int, anneal_frac: float):
 
 
 def _stack_chunk(chunk) -> dict:
-    """[sweep][chain] params dicts → {leaf: (n_sweeps, n_chains, ...)} on the device."""
-    return {k: torch.stack([torch.stack([p[k] for p in per_chain]) for per_chain in chunk])
-            for k in chunk[0][0]}
+    """[sweep] batched params dicts → {leaf: (n_sweeps, n_chains, ...)} on the device."""
+    return {k: torch.stack([p[k] for p in chunk]) for k in chunk[0]}
 
 
 class _Store:
     """The checkpoints and persisted sample chunks of one sampler run in
-    ``directory``: the chains' states, their generators' states and the
-    summed birth–death acceptance, saved at the end of a chunk that crosses
-    a multiple of ``every`` (every chunk when 0) and at the very end; each
-    sampling chunk's kept draws as ``samples_<iteration>.npz``."""
+    ``directory``: the chains' batched state, their generators' states and
+    the summed birth–death acceptance, saved at the end of a chunk that
+    crosses a multiple of ``every`` (every chunk when 0) and at the very
+    end; each sampling chunk's kept draws as ``samples_<iteration>.npz``."""
 
     def __init__(self, directory: str, every: int, generators, device):
         self.directory, self.every, self.generators, self.device = directory, every, generators, device
 
     def restore(self):
-        """(iteration, states, summed acceptance, kept sample chunks) of the
+        """(iteration, state, summed acceptance, kept sample chunks) of the
         latest checkpoint, with the generators set to their saved states;
         None without one. Only the sample chunks at or before the restored
         iteration count: later ones are made again."""
@@ -420,24 +480,24 @@ class _Store:
         os.makedirs(self.directory, exist_ok=True)
         np.savez_compressed(os.path.join(self.directory, f"samples_{it:09d}.npz"), **kept)
 
-    def checkpoint(self, prev_it: int, it: int, last: bool, states, acc_sum) -> None:
+    def checkpoint(self, prev_it: int, it: int, last: bool, state, acc_sum) -> None:
         if self.every and prev_it // self.every == it // self.every and not last:
             return
-        save_checkpoint(self.directory, it, {"states": states, "accept_sum": acc_sum}, self.generators)
+        save_checkpoint(self.directory, it, {"states": state, "accept_sum": acc_sum}, self.generators)
 
 
-def _run(step, states, n_warmup, n_samples, thin, chunk_size, anneal_frac, callback,
+def _run(step, state, n_warmup, n_samples, thin, chunk_size, anneal_frac, callback,
          end_of_warmup=None, after_chunk=None, store: Optional[_Store] = None, resume: bool = False):
-    """Drive ``step(states, adapt, beta) -> states`` (one state per chain)
-    through warmup, its adaptation windows and then sampling.
+    """Drive ``step(state, adapt, beta) -> state`` (the chains' batched
+    state) through warmup, its adaptation windows and then sampling.
 
     A chunk ends every ``chunk_size`` sweeps of a phase and at the end of
-    each phase. There, in order: ``after_chunk(iteration, states, beta)``
-    may replace the states (the ARS bias pass); the chunk's kept draws are
+    each phase. There, in order: ``after_chunk(iteration, state, beta)``
+    may replace the state (the ARS bias pass); the chunk's kept draws are
     copied to the host (sampling); ``store`` persists them and checkpoints;
-    ``callback(phase, sweeps done in the phase, states)`` runs. With
+    ``callback(phase, sweeps done in the phase, state)`` runs. With
     ``resume`` the run starts from the store's latest checkpoint, if any.
-    Returns (states, samples {leaf: (n_samples, n_chains, ...) numpy},
+    Returns (state, samples {leaf: (n_samples, n_chains, ...) numpy},
     per-chain mean acceptance of the birth–death move over all sweeps, or
     None).
     """
@@ -447,55 +507,55 @@ def _run(step, states, n_warmup, n_samples, thin, chunk_size, anneal_frac, callb
     start, acc_sum, host = 0, None, []
     restored = store.restore() if store is not None and resume else None
     if restored is not None:
-        start, states, acc_sum, host = restored
+        start, state, acc_sum, host = restored
 
-    def track(states):
+    def track(state):
         nonlocal acc_sum
-        if "accept_adjacency" in states[0]:
-            acc = torch.stack([s["accept_adjacency"] for s in states])
+        if "accept_adjacency" in state:
+            acc = state["accept_adjacency"]
             acc_sum = acc if acc_sum is None else acc_sum + acc
 
-    def chunk_end(phase, done, prev_it, it, states, beta, kept=None):
+    def chunk_end(phase, done, prev_it, it, state, beta, kept=None):
         if after_chunk is not None:
-            states = after_chunk(it, states, beta)
+            state = after_chunk(it, state, beta)
         if kept is not None:
             kept = {k: v.cpu().numpy() for k, v in kept.items()}
             host.append(kept)
         if store is not None:
             if kept is not None:
                 store.persist(it, kept)
-            store.checkpoint(prev_it, it, it == n_warmup + total, states, acc_sum)
+            store.checkpoint(prev_it, it, it == n_warmup + total, state, acc_sum)
         if callback is not None:
-            callback(phase, done, states)
-        return states
+            callback(phase, done, state)
+        return state
 
     prev = start
     for it in range(start, n_warmup):
         beta = 1.0 if beta_at is None else beta_at(it)
-        states = step(states, True, beta)
-        track(states)
+        state = step(state, True, beta)
+        track(state)
         for b, action in boundaries:
             if b == it + 1:
-                states = [adapt_boundary(s, action) for s in states]
+                state = adapt_boundary(state, action)
         if (it + 1) % chunk_size == 0 or it + 1 == n_warmup:
-            states = chunk_end("warmup", it + 1, prev, it + 1, states, beta)
+            state = chunk_end("warmup", it + 1, prev, it + 1, state, beta)
             prev = it + 1
     if end_of_warmup is not None and start <= n_warmup:
-        states = end_of_warmup(states)
+        state = end_of_warmup(state)
 
     chunk = []
     for it in range(max(start - n_warmup, 0), total):
-        states = step(states, False, 1.0)
-        track(states)
-        chunk.append([s["params"] for s in states])
+        state = step(state, False, 1.0)
+        track(state)
+        chunk.append(state["params"])
         if (it + 1) % chunk_size == 0 or it + 1 == total:
             kept = thin_chunk(_stack_chunk(chunk), thin, it + 1 - len(chunk))
-            states = chunk_end("sample", it + 1, prev, n_warmup + it + 1, states, 1.0, kept)
+            state = chunk_end("sample", it + 1, prev, n_warmup + it + 1, state, 1.0, kept)
             prev, chunk = n_warmup + it + 1, []
     samples = {k: np.concatenate([h[k] for h in host], 0) for k in host[0]} if host else {}
     n_sweeps = n_warmup + total
     acc = None if acc_sum is None or n_sweeps == 0 else (acc_sum / n_sweeps).cpu().numpy()
-    return states, samples, acc
+    return state, samples, acc
 
 
 def _ars_random_state(seed: int, it: int) -> np.random.RandomState:
@@ -562,33 +622,35 @@ def gibbs_sample(
         init_params = pop.sample(generator)
     sweep = make_sweep(pop, data, n_leapfrog=n_leapfrog, target_accept=target_accept,
                        row_batch=row_batch, fisher_params=init_params, glm_update=glm_update)
+    gens = [generator]  # the batched sweep at C = 1
 
-    def step(states, adapt, beta):
-        return [sweep(generator, states[0], adapt, beta)]
+    def step(state, adapt, beta):
+        return sweep(gens, state, adapt, beta)
 
     after_chunk = None
     if bias_update == "ars":
         from theano_pyglm_torch.inference.ars import update_bias_ars
 
-        def after_chunk(it, states, beta):
+        def after_chunk(it, state, beta):
             if beta < 1.0:  # ARS targets the untempered conditional
-                return states
+                return state
             # the generator's seed, read now: after a restore it is the first run's
             rng = _ars_random_state(generator.initial_seed(), it)
-            params = update_bias_ars(rng, pop, states[0]["params"], data)
-            return [{**states[0], "params": params}]
+            params = update_bias_ars(rng, pop, chain_state(state["params"], 0), data)
+            return {**state, "params": {k: v[None] for k, v in params.items()}}
 
     cb = None
     if callback is not None:
-        def cb(phase, it, states):
-            callback(phase, it if phase == "warmup" else n_warmup + it, states[0])
+        def cb(phase, it, state):
+            callback(phase, it if phase == "warmup" else n_warmup + it, chain_state(state, 0))
 
-    store = None if checkpoint_dir is None else _Store(checkpoint_dir, checkpoint_every, [generator], pop.device)
-    (state,), samples, acc = _run(
-        step, [init_mcmc_state(pop, init_params, step_size=step_size)],
+    store = None if checkpoint_dir is None else _Store(checkpoint_dir, checkpoint_every, gens, pop.device)
+    state, samples, acc = _run(
+        step, init_mcmc_state(pop, stack_states([init_params]), step_size=step_size),
         n_warmup, n_samples, thin, chunk_size, anneal_frac, cb,
         after_chunk=after_chunk, store=store, resume=resume,
     )
+    state = chain_state(state, 0)
     samples = {k: v[:, 0] for k, v in samples.items()}
     diagnostics = {}
     for name, _ in _HMC_BLOCKS:

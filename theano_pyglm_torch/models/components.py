@@ -6,6 +6,11 @@ Each component is a record of functions over a shared params dict:
   log_prior(params)        -> scalar log p(component params)
   current(params, data)    -> (T, N) additive current for every neuron
 
+``log_prior`` and ``current`` also take params with a leading chain axis
+(every leaf (C, ...), as the sampler's batched state holds them): they then
+give (C,) and (C, T, N), chain by chain what they give for one chain (the
+JAX package's ``vmap`` over chains, written out).
+
 Draws happen on the generator's device; the population moves them to its
 own. The population sums currents, applies the nonlinearity and adds the
 observation log-likelihood (models/population.py).
@@ -72,7 +77,9 @@ def _zero_current(params, data):
 
 
 def _zero(params):
-    return torch.zeros((), dtype=params["A"].dtype, device=params["A"].device)
+    """A zero log-prior, one per chain: A is (N, N) or (C, N, N)."""
+    A = params["A"]
+    return torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
 
 
 # --- bias -----------------------------------------------------------------
@@ -86,10 +93,11 @@ def make_bias(spec: dict, N: int) -> CurrentComponent:
         return {"bias": sample_gaussian(generator, mu, sigma, (N,), dtype)}
 
     def log_prior(params):
-        return gaussian_logpdf(params["bias"], mu, sigma).sum()
+        return gaussian_logpdf(params["bias"], mu, sigma).sum(-1)
 
     def current(params, data):
-        return params["bias"][None, :].expand_as(data["S"])
+        b = params["bias"]
+        return b.unsqueeze(-2).expand(*b.shape[:-1], *data["S"].shape)
 
     return CurrentComponent("bias", sample, log_prior, current)
 
@@ -128,10 +136,10 @@ def make_bkgd(spec: dict, N: int, B_stim: int, D_stim: int) -> CurrentComponent:
             return {"w_stim": sample_gaussian(generator, mu, sigma, (N, DB), dtype)}
 
         def log_prior(params):
-            return gaussian_logpdf(params["w_stim"], mu, sigma).sum()
+            return gaussian_logpdf(params["w_stim"], mu, sigma).sum((-2, -1))
 
         def current(params, data):
-            return data["X_stim"] @ params["w_stim"].T  # (T,DB)@(DB,N)
+            return data["X_stim"] @ params["w_stim"].transpose(-1, -2)  # (T,DB)@([C,]DB,N)
 
         return CurrentComponent("bkgd", sample, log_prior, current)
 
@@ -145,13 +153,13 @@ def make_bkgd(spec: dict, N: int, B_stim: int, D_stim: int) -> CurrentComponent:
             }
 
         def log_prior(params):
-            return gaussian_logpdf(params["w_stim_shared"], mu, sigma).sum() + gaussian_logpdf(
+            return gaussian_logpdf(params["w_stim_shared"], mu, sigma).sum(-1) + gaussian_logpdf(
                 params["gain"], GAIN_PRIOR_MU, GAIN_PRIOR_SD
-            ).sum()
+            ).sum(-1)
 
         def current(params, data):
-            drive = data["X_stim"] @ params["w_stim_shared"]  # (T,)
-            return drive[:, None] * params["gain"][None, :]
+            drive = params["w_stim_shared"] @ data["X_stim"].T  # ([C,] T)
+            return drive.unsqueeze(-1) * params["gain"].unsqueeze(-2)
 
         return CurrentComponent("bkgd", sample, log_prior, current)
 
@@ -164,13 +172,13 @@ def make_bkgd(spec: dict, N: int, B_stim: int, D_stim: int) -> CurrentComponent:
             }
 
         def log_prior(params):
-            return gaussian_logpdf(params["w_stim_s"], mu, sigma).sum() + gaussian_logpdf(
+            return gaussian_logpdf(params["w_stim_s"], mu, sigma).sum((-2, -1)) + gaussian_logpdf(
                 params["w_stim_t"], mu, sigma
-            ).sum()
+            ).sum((-2, -1))
 
         def current(params, data):
             return torch.einsum(
-                "tdb,nd,nb->tn", data["X_st"], params["w_stim_s"], params["w_stim_t"]
+                "tdb,...nd,...nb->...tn", data["X_st"], params["w_stim_s"], params["w_stim_t"]
             )
 
         return CurrentComponent("bkgd", sample, log_prior, current)
@@ -186,10 +194,11 @@ def combined_weights(w_eff: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     current is one matmul of the flattened (T, N_pre·B) design with U.
 
     U[p·B + b, n] = G[n, p] · w_eff[n, p, b] — the operand of the fused
-    Poisson log-likelihood kernels (ops/kernels.py).
+    Poisson log-likelihood kernels (ops/kernels.py). With a leading chain
+    axis, (C, N_pre·B, N_post).
     """
-    N = G.shape[0]
-    return (w_eff * G[:, :, None]).permute(1, 2, 0).reshape(-1, N)
+    N = G.shape[-1]
+    return (w_eff * G[..., None]).movedim(-3, -1).reshape(*G.shape[:-2], -1, N)
 
 
 def make_impulse(spec: dict, N: int, B_imp: int) -> CurrentComponent:
@@ -216,7 +225,7 @@ def make_impulse(spec: dict, N: int, B_imp: int) -> CurrentComponent:
 
     def log_prior(params):
         w = params["w_ir"]
-        return gaussian_logpdf(w, mu_of(w), sigma_of(w)).sum()
+        return gaussian_logpdf(w, mu_of(w), sigma_of(w)).sum((-3, -2, -1))
 
     if typ == "basis":
 
@@ -238,7 +247,7 @@ def make_impulse(spec: dict, N: int, B_imp: int) -> CurrentComponent:
         mean = data.get("_X_imp_mean")
         if mean is not None:
             # the centered-out column means re-enter as a constant current
-            I = I + (mean.reshape(-1) @ U)[None, :]
+            I = I + (mean.reshape(-1) @ U).unsqueeze(-2)
         return I
 
     return CurrentComponent("impulse", sample, log_prior, current, effective)

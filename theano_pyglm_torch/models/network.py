@@ -23,7 +23,11 @@ Weight priors:
                  Normal–Inverse-Gamma hyperprior on the off-diagonal (μ, σ²).
 
 Samplers draw on the generator's device in the dtype they are given; the SBM
-types ``y`` are int64.
+types ``y`` are int64. ``log_prior``, ``edge_prob``, ``effective_W`` and
+``prior_mu_sigma`` also take params with a leading chain axis (A (C, N, N),
+every latent (C, ...)) and then give one value, or one (N, N) matrix, per
+chain (``prior_mu_sigma`` broadcasts: it stays (N, N) where it does not
+depend on the params).
 """
 
 from __future__ import annotations
@@ -69,7 +73,14 @@ class WeightComponent(NamedTuple):
 
 
 def _zero(params):
-    return torch.zeros((), dtype=params["A"].dtype, device=params["A"].device)
+    """A zero log-prior, one per chain: A is (N, N) or (C, N, N)."""
+    A = params["A"]
+    return torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
+
+
+def _sum_nn(x):
+    """Sum over the trailing (N, N) axes: a scalar, or one value per chain."""
+    return x.sum((-2, -1))
 
 
 # --- graph priors ---------------------------------------------------------
@@ -105,11 +116,12 @@ def make_graph(spec: dict, N: int) -> GraphComponent:
 
         def edge_prob(params):
             if infer_rho:
-                return params["rho"].expand(N, N)
+                rho = params["rho"]
+                return rho[..., None, None].expand(*rho.shape, N, N)
             return torch.full_like(params["A"], rho0)
 
         def log_prior(params):
-            lp = bernoulli_logpmf(params["A"], edge_prob(params)).sum()
+            lp = _sum_nn(bernoulli_logpmf(params["A"], edge_prob(params)))
             if infer_rho:
                 lp = lp + beta_logpdf(params["rho"], a0, b0)
             return lp
@@ -129,15 +141,17 @@ def make_graph(spec: dict, N: int) -> GraphComponent:
             return {"A": A, "y": y, "pi": pi, "Bm": Bm}
 
         def edge_prob(params):
-            y = params["y"]
-            return params["Bm"][y[:, None], y[None, :]]
+            # B[y_n, y_m] of each chain, gathered from the flattened K × K blocks
+            y, Bm = params["y"], params["Bm"]
+            idx = y[..., :, None] * K + y[..., None, :]
+            return torch.gather(Bm.flatten(-2), -1, idx.flatten(-2)).view(idx.shape)
 
         def log_prior(params):
             pi, y, Bm = params["pi"], params["y"], params["Bm"]
             lp = dirichlet_logpdf(pi, alpha0 * torch.ones(K, dtype=pi.dtype, device=pi.device))
-            lp = lp + categorical_logpmf(y, torch.log(pi).expand(N, K)).sum()
-            lp = lp + beta_logpdf(Bm, b0, b1).sum()
-            lp = lp + bernoulli_logpmf(params["A"], edge_prob(params)).sum()
+            lp = lp + categorical_logpmf(y, torch.log(pi).unsqueeze(-2).expand(*y.shape, K)).sum(-1)
+            lp = lp + _sum_nn(beta_logpdf(Bm, b0, b1))
+            lp = lp + _sum_nn(bernoulli_logpmf(params["A"], edge_prob(params)))
             return lp
 
         return GraphComponent("sbm", sample, log_prior, edge_prob, False, (), ("y",))
@@ -149,7 +163,7 @@ def make_graph(spec: dict, N: int) -> GraphComponent:
         eta0 = float(spec.get("eta0", 0.0))
 
         def _logits(locs):
-            d2 = ((locs[:, None, :] - locs[None, :, :]) ** 2).sum(-1)
+            d2 = ((locs[..., :, None, :] - locs[..., None, :, :]) ** 2).sum(-1)
             return eta0 - d2 / (tau * tau)
 
         def sample(generator, dtype):
@@ -161,8 +175,8 @@ def make_graph(spec: dict, N: int) -> GraphComponent:
             return torch.sigmoid(_logits(params["locs"]))
 
         def log_prior(params):
-            lp = gaussian_logpdf(params["locs"], 0.0, sigma_l).sum()
-            lp = lp + bernoulli_logpmf(params["A"], edge_prob(params)).sum()
+            lp = _sum_nn(gaussian_logpdf(params["locs"], 0.0, sigma_l))
+            lp = lp + _sum_nn(bernoulli_logpmf(params["A"], edge_prob(params)))
             return lp
 
         return GraphComponent("distance", sample, log_prior, edge_prob, False, ("locs",), ())
@@ -204,6 +218,8 @@ def make_weights(spec: dict, N: int) -> WeightComponent:
             eye = torch.eye(N, dtype=dtype, device=device)
             mu_od = params.get("W_mu", mu) if infer_hypers else mu
             sig_od = params.get("W_sigma", sigma) if infer_hypers else sigma
+            if isinstance(mu_od, torch.Tensor):  # one value per chain, or a scalar
+                mu_od, sig_od = mu_od[..., None, None], sig_od[..., None, None]
             MU = mu_od * (1 - eye) + mu_self * eye
             SIG = sig_od * (1 - eye) + sigma_self * eye
             return MU, SIG
@@ -220,7 +236,7 @@ def make_weights(spec: dict, N: int) -> WeightComponent:
 
         def log_prior(params):
             MU, SIG = mu_sig(params)
-            lp = gaussian_logpdf(params["W"], MU, SIG).sum()
+            lp = _sum_nn(gaussian_logpdf(params["W"], MU, SIG))
             if infer_hypers:
                 var = params["W_sigma"] ** 2
                 # InvGamma(a0,b0) density in σ² plus N(m0, σ²/k0) on μ

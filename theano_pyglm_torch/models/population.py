@@ -14,6 +14,14 @@ log-likelihood op (ops/kernels.py): on a CUDA device its value+grad runs the
 hand-written kernel K2 and a value-only evaluation (under ``torch.no_grad``)
 runs K1. ``use_fused=False`` selects the plain per-neuron torch path.
 
+Chains: ``coupling``, ``currents``, the likelihood, ``log_prior`` and
+``log_joint`` also take params with a leading chain axis (every leaf
+(C, ...), as the sampler's batched state holds them; the JAX package
+``vmap``s them). They then give one value per chain, (C,), and the fused
+op runs the chain-batched kernel K3 once for all chains (once per group of
+``kernels.chain_groups`` where K3 does not take them all; a chain alone:
+K1/K2), so X_f is read once per launch whatever C is.
+
 Long recordings: with ``time_chunk`` the likelihood is a sum over time
 blocks of that many bins (the last one ragged). With
 ``prepare_data(materialize_design=False)`` the (T, N, B) spike design is
@@ -142,7 +150,7 @@ class Population:
         return {k: v.to(self.device) for k, v in params.items()}
 
     def coupling(self, params) -> torch.Tensor:
-        """Effective coupling G = A ∘ W, shape (N_post, N_pre)."""
+        """Effective coupling G = A ∘ W, shape ([C,] N_post, N_pre)."""
         return params["A"] * self.weights.effective_W(params)
 
     # --- data -------------------------------------------------------------
@@ -255,12 +263,12 @@ class Population:
         return d
 
     def log_likelihood_per_neuron(self, params, data) -> torch.Tensor:
-        """(N,) spike log-likelihood per postsynaptic neuron (factorizes)."""
+        """([C,] N) spike log-likelihood per postsynaptic neuron (factorizes)."""
         if self._chunked(data):
             return self._ll_per_neuron_chunked(params, data)
         I = self.total_current(params, data)
         ll = self.observation.log_likelihood(data["S"], I, self.nlin, self.dt)
-        return ll.sum(0)
+        return ll.sum(-2)
 
     def _ll_per_neuron_chunked(self, params, data) -> torch.Tensor:
         """(N,) log-likelihood as a sum over time blocks (the JAX package's
@@ -276,7 +284,7 @@ class Population:
             I = torch.zeros_like(d["S"])
             for c in self._current_components:
                 I = I + c.current(params, d)
-            return self.observation.log_likelihood(d["S"], I, self.nlin, self.dt).sum(0)
+            return self.observation.log_likelihood(d["S"], I, self.nlin, self.dt).sum(-2)
 
         total = 0.0
         for t0 in range(0, data["S"].shape[0], self.time_chunk):
@@ -297,11 +305,13 @@ class Population:
         )
 
     def log_likelihood(self, params, data) -> torch.Tensor:
+        """The spike log-likelihood: a scalar, or (C,) for chain-batched
+        params."""
         if not self._fused_active(data):
-            return self.log_likelihood_per_neuron(params, data).sum()
+            return self.log_likelihood_per_neuron(params, data).sum(-1)
         U = combined_weights(self.impulse.effective(params), self.coupling(params))
         mean = data.get("_X_imp_mean")
-        offset = None if mean is None else (mean.reshape(-1) @ U)[None, :]
+        offset = None if mean is None else (mean.reshape(-1) @ U).unsqueeze(-2)
         starts = range(0, data["S"].shape[0], self.time_chunk) if self._chunked(data) else (None,)
         ll = 0.0
         for t0 in starts:

@@ -83,6 +83,12 @@ def load_fused_ll() -> ctypes.CDLL:
     lib.fused_ll_fwd.restype = i32
     lib.fused_ll_vg.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
     lib.fused_ll_vg.restype = i32
+    # K3: (x_f, u, i_rest, s, [d_irest], part, out, barrier,
+    #  T, NB, N, C, tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt, stream)
+    lib.fused_ll_fwd_chains.argtypes = [ptr] * 7 + [i32] * 9 + [f32, f32, ptr]
+    lib.fused_ll_fwd_chains.restype = i32
+    lib.fused_ll_vg_chains.argtypes = [ptr] * 8 + [i32] * 9 + [f32, f32, ptr]
+    lib.fused_ll_vg_chains.restype = i32
     lib.fused_ll_error_string.argtypes = [i32]
     lib.fused_ll_error_string.restype = ctypes.c_char_p
     return lib

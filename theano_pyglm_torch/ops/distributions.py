@@ -8,6 +8,8 @@ numbers or tensors on the argument's device.
 
 Every sampler takes a ``torch.Generator`` and draws on that generator's
 device. ``dtype`` defaults to :func:`~theano_pyglm_torch.utils.dtypes.default_float`.
+:func:`draw` makes one draw for each of several chains, each from its own
+generator.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ __all__ = [
     "sample_dirichlet",
     "sample_bernoulli",
     "sample_categorical",
+    "draw",
 ]
 
 _LOG2PI = 1.8378770664093453
@@ -166,3 +169,18 @@ def sample_categorical(generator, log_pi, shape=()):
         n *= int(s)
     draws = torch.multinomial(probs, n, replacement=True, generator=generator)
     return draws.reshape(tuple(shape))
+
+
+def draw(generator, fn, *args):
+    """``fn(generator, *args)`` for one generator. For a sequence of C
+    generators, one per chain: ``fn(generators[c], *(a[c] for a in args))``
+    for each chain c in turn, stacked on a leading chain axis, so each
+    chain's generator makes the draws a one-chain call would make, in the
+    same order. ``args`` carry the chain axis first when there are chains.
+    It costs C draws, one per chain, where one chain costs one (and, for
+    C = 1, no copy: the draw gains the axis as a view)."""
+    if isinstance(generator, torch.Generator):
+        return fn(generator, *args)
+    if len(generator) == 1:
+        return fn(generator[0], *(a[0] for a in args))[None]
+    return torch.stack([fn(g, *(a[c] for a in args)) for c, g in enumerate(generator)])

@@ -17,13 +17,29 @@ ride the same read of X_f as the value. Two CUDA kernels
   K1 (:func:`fused_ll_value`)          value only — ``_fwd_kernel``'s port
   K2 (:func:`fused_ll_value_and_grad`) value, dU, dI_rest — ``_vg_kernel``'s
 
+and, for C chains of U (C, NB, N) and I_rest (C, T, N) against one X_f and
+one S (the sampler's chain axis), the chain-batched pair K3, the port of the
+``custom_vmap`` rules ``_ll_chains_xla`` / ``_vg_chains_xla`` that JAX
+reaches under ``vmap`` (plain XLA there, not ``pallas_call``s):
+
+  K3-fwd (:func:`fused_ll_value_chains`)          the C values
+  K3-vg  (:func:`fused_ll_value_and_grad_chains`) the C values, dU, dI_rest
+
+K3 is a chain dimension of K1/K2's columns: column c·N + n reads
+U[c, :, n], I_rest[c, :, n] and S[:, n], so one tile of X_f and S feeds every
+chain (see the source note).
+
 Each wrapper launches its kernel for CUDA tensors and adds one to its entry
 of :data:`LAUNCHES`; for CPU tensors it runs the plain torch version beside
-it (:func:`fused_poisson_ll_reference`), which is also the tests' oracle.
+it (:func:`fused_poisson_ll_reference`, :func:`fused_poisson_ll_chains_reference`),
+which is also the tests' oracle. The chain wrappers cut the C chains into
+the groups that :func:`chain_groups` gives and launch one K3 per group, or
+K1/K2 per chain where K3 does not take two.
 Any other placement, or a CUDA tensor that is not float32 and contiguous,
 raises. :class:`FusedPoissonLL` is the autograd op: K2 when ``u`` or
-``i_rest`` needs a gradient, else K1. A call's tile, grid, column groups and
-shared memory come from :func:`launch_plan`, a plain function of the shapes.
+``i_rest`` needs a gradient, else K1; :class:`FusedPoissonLLChains` is
+K3's. A call's tile, grid, column groups and shared memory come from
+:func:`launch_plan`, a plain function of the shapes.
 
 Column groups. A block keeps its columns of U in shared memory, which holds
 all of U up to NB·N ≈ 8,000 words (NB = 5N: N ≤ 88). Column n of I, dI_rest
@@ -33,8 +49,12 @@ group: G is the least count whose group fits at a 4-bin tile (NB = 5N: G = 2
 for 89 ≤ N ≤ 112; N = 100 runs two groups of 56 and 44). G = 1 at every
 smaller shape, where the launch is what it was before groups. A tile's X_f is
 read once per group, so its device-memory reads grow to G·|X_f| where the
-L2 does not serve the groups that share a tile. The chain-batched form
-(ROADMAP K3) and bf16 designs (K4) are not ported yet.
+L2 does not serve the groups that share a tile. K3 takes one column group:
+all the C·N columns of its chains beside a 4-bin tile, for at most
+MAX_CHAINS chains. Past that the chains go in groups of chains, as even as
+the most K3 takes allows (NB = 5N: 8 chains up to N = 33, 4 up to 46, 3 up
+to 53, 2 up to 64); from N = 65 on, each chain runs K1/K2
+(:func:`chain_groups`). bf16 designs (ROADMAP K4) are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,15 +70,23 @@ from theano_pyglm_torch.ops.clipping import clip_exponent, exponent_active
 __all__ = [
     "DU_TILE",
     "LAUNCHES",
+    "MAX_CHAINS",
     "SMEM_LIMIT",
     "THREADS",
     "TILE_MAX",
     "FusedPoissonLL",
+    "FusedPoissonLLChains",
     "LaunchPlan",
+    "chain_groups",
     "du_tiles",
     "fused_ll_value",
     "fused_ll_value_and_grad",
+    "fused_ll_value_chains",
+    "fused_ll_value_and_grad_chains",
     "fused_poisson_ll",
+    "fused_poisson_ll_chains",
+    "fused_poisson_ll_chains_reference",
+    "fused_poisson_ll_chains_value_reference",
     "fused_poisson_ll_reference",
     "fused_poisson_ll_value_reference",
     "launch_plan",
@@ -67,8 +95,9 @@ __all__ = [
 THREADS = 256  # threads per block of the CUDA kernels (kThreads in the source)
 TILE_MAX = 128  # the widest time tile, in bins
 SMEM_LIMIT = 227 * 1024 - 256  # a Hopper block's 227 KB, less the kernels' static shared memory
+MAX_CHAINS = 8  # K3's chains, at most (kMaxChains in the source)
 # Launches of each kernel on a CUDA device; the CPU path does not count.
-LAUNCHES = {"fwd": 0, "vg": 0}
+LAUNCHES = {"fwd": 0, "vg": 0, "fwd_chains": 0, "vg_chains": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -92,21 +121,37 @@ def fused_poisson_ll_reference(x_f, u, i_rest, s, dt: float):
     return ll, x_f.T @ d_irest, d_irest
 
 
+def fused_poisson_ll_chains_value_reference(x_f, u, i_rest, s, dt: float):
+    """Plain torch K3-fwd: the (C,) values of U (C, NB, N), I_rest (C, T, N)."""
+    I = clip_exponent(i_rest + x_f @ u)
+    return torch.sum(s * (I + math.log(dt)) - torch.exp(I) * dt, dim=(-2, -1))
+
+
+def fused_poisson_ll_chains_reference(x_f, u, i_rest, s, dt: float):
+    """Plain torch K3-vg: (ll (C,), dU (C, NB, N), dI_rest (C, T, N))."""
+    i_raw = i_rest + x_f @ u
+    I = clip_exponent(i_raw)
+    rate_dt = torch.exp(I) * dt
+    ll = torch.sum(s * (I + math.log(dt)) - rate_dt, dim=(-2, -1))
+    d_irest = torch.where(exponent_active(i_raw), s - rate_dt, torch.zeros_like(rate_dt))
+    return ll, x_f.T @ d_irest, d_irest
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 
 class LaunchPlan(NamedTuple):
-    """How one call of K1 or K2 is cut (see the source note of the kernels).
-    The grid is (grid_x, grid_y · groups) blocks."""
+    """How one call of K1, K2 or K3 is cut (see the source note of the
+    kernels). The grid is (grid_x, grid_y · groups) blocks."""
 
     tile_t: int  # bins per time tile, a multiple of 4
     n_tiles: int  # ceil(T / tile_t)
     grid_x: int  # persistent blocks striding over the tiles, at most one per SM
-    grid_y: int  # K2: slices of one group's dU micro-tiles; K1: 1
+    grid_y: int  # K2/K3-vg: slices of one group's dU micro-tiles; K1/K3-fwd: 1
     smem_bytes: int  # dynamic shared memory of one block
-    groups: int  # G, the column groups of U (1: all N columns in every block)
+    groups: int  # G, the column groups of U (1: all N columns in every block; K3: 1)
     group_cols: int  # columns of a group: N when G = 1, else a multiple of 8
 
 
@@ -114,13 +159,15 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _smem_bytes(NB: int, N: int, tile_t: int) -> int:
+def _smem_bytes(NB: int, N: int, tile_t: int, chains: int = 1) -> int:
     """Mirror of smem_bytes_for in the source: U, two stages of the X_f,
     I_rest and S tiles, and a join scratch, in 32-bit words, for a block
-    that holds N columns (a column group's width)."""
-    bs = _ceil_to(N, 8) + (0 if _ceil_to(N, 8) % 16 else 8)  # b_stride
+    that holds N columns (a column group's width) of each of ``chains``
+    chains (K3; 1 for K1/K2)."""
+    cols = _ceil_to(chains * N, 8)
+    bs = cols + (0 if cols % 16 else 8)  # b_stride of the C·N columns
     ns = _ceil_to(tile_t * N, 4) + 8  # n_span
-    stage = _ceil_to(tile_t, 16) * NB + 2 * ns
+    stage = _ceil_to(tile_t, 16) * NB + (chains + 1) * ns
     return 4 * (_ceil_to(NB, 8) * bs + 2 * stage + 8 * THREADS)
 
 
@@ -129,9 +176,10 @@ def _smem_bytes(NB: int, N: int, tile_t: int) -> int:
 DU_TILE = (9, 7)
 
 
-def du_tiles(NB: int, N: int) -> int:
-    """K2's dU in DU_TILE micro-tiles, one per thread of a grid_y slice."""
-    return -(-NB // DU_TILE[0]) * -(-N // DU_TILE[1])
+def du_tiles(NB: int, N: int, chains: int = 1) -> int:
+    """K2's (K3-vg's) dU in DU_TILE micro-tiles, one per thread of a grid_y
+    slice; a micro-tile never crosses a chain."""
+    return -(-NB // DU_TILE[0]) * chains * -(-N // DU_TILE[1])
 
 
 def _group_cols(NB: int, N: int) -> int:
@@ -149,29 +197,63 @@ def _group_cols(NB: int, N: int) -> int:
     )
 
 
-@functools.lru_cache(maxsize=256)
-def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool) -> LaunchPlan:
-    """Tile, grid, column groups and shared memory of one call at (T, NB, N)
-    on a card with ``sm_count`` SMs.
+def _k3_fits(NB: int, N: int, C: int) -> bool:
+    """K3 takes C chains at (NB, N): 2 ≤ C ≤ MAX_CHAINS, and all C·N columns
+    of U and C I_rest spans fit beside a 4-bin tile."""
+    return 2 <= C <= MAX_CHAINS and _smem_bytes(NB, N, 4, C) <= SMEM_LIMIT
 
-    G is the least number of column groups whose U slice and two 4-bin
-    stages fit in SMEM_LIMIT (:func:`_group_cols`). The tile is the widest
-    multiple of 4 bins up to TILE_MAX whose two stages fit beside the group,
-    then narrowed so that every block takes the same number of tiles, give
-    or take one. K2 splits a group's dU micro-tiles over grid_y slices of
-    THREADS. Raises ValueError when not even a group of 8 columns fits at a
-    4-bin tile, or when one time tile's blocks outnumber the SMs.
+
+@functools.lru_cache(maxsize=256)
+def chain_groups(NB: int, N: int, C: int) -> tuple:
+    """The sizes of the groups of chains that a chain-batched call of C
+    chains at (NB, N) launches, in chain order: the fewest groups that K3
+    takes, as even as they can be. A group of one chain is a call of K1/K2:
+    C = 1, and every chain where K3 does not take two."""
+    if C < 1:
+        raise ValueError(f"no chains: C={C}")
+    most = max((c for c in range(2, MAX_CHAINS + 1) if _k3_fits(NB, N, c)), default=1)
+    n = -(-C // most)
+    return tuple(C // n + (i < C % n) for i in range(n))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains: int = 1) -> LaunchPlan:
+    """Tile, grid, column groups and shared memory of one call at (T, NB, N)
+    on a card with ``sm_count`` SMs: of K1/K2 (``chains`` = 1), or of K3 on
+    ``chains`` = C ≥ 2 chains.
+
+    K1/K2: G is the least number of column groups whose U slice and two
+    4-bin stages fit in SMEM_LIMIT (:func:`_group_cols`). K3 takes one group:
+    all C·N columns of U and C I_rest spans beside a 4-bin tile, else
+    ValueError (:func:`chain_groups` cuts the chains so that each group
+    fits). The tile is the widest multiple of 4 bins up to TILE_MAX whose
+    two stages fit beside the group, then narrowed so that every block
+    takes the same number of tiles, give or take one. K2 and K3-vg split a
+    group's dU micro-tiles over grid_y slices of THREADS. Raises ValueError
+    when not even a group of 8 columns fits at a 4-bin tile, when one time
+    tile's blocks outnumber the SMs, or when C is outside 1..MAX_CHAINS.
     """
     if min(T, NB, N, sm_count) < 1:
         raise ValueError(f"empty launch: T={T} NB={NB} N={N} sm_count={sm_count}")
-    W = _group_cols(NB, N)
+    C = int(chains)
+    if C == 1:
+        W = _group_cols(NB, N)
+    elif not 2 <= C <= MAX_CHAINS:
+        raise ValueError(f"K3 takes 2 to {MAX_CHAINS} chains, not C={C} (NB={NB}, N={N})")
+    elif not _k3_fits(NB, N, C):
+        raise ValueError(
+            f"K3 at NB={NB}, N={N}, C={C} needs {_smem_bytes(NB, N, 4, C)} B of shared memory "
+            f"(> {SMEM_LIMIT}); it takes no column groups"
+        )
+    else:
+        W = N
     groups = -(-N // W)
     tile_max = 4
-    while tile_max + 4 <= TILE_MAX and _smem_bytes(NB, W, tile_max + 4) <= SMEM_LIMIT:
+    while tile_max + 4 <= TILE_MAX and _smem_bytes(NB, W, tile_max + 4, C) <= SMEM_LIMIT:
         tile_max += 4
-    grid_y = -(-du_tiles(NB, W) // THREADS) if grad else 1
+    grid_y = -(-du_tiles(NB, W, C) // THREADS) if grad else 1
     if grid_y * groups > sm_count:
-        raise ValueError(f"NB={NB}, N={N}: {grid_y * groups} blocks a tile exceed {sm_count} SMs")
+        raise ValueError(f"NB={NB}, N={N}, C={C}: {grid_y * groups} blocks a tile exceed {sm_count} SMs")
     gx_cap = sm_count // (grid_y * groups)
     per_block = -(-T // (gx_cap * tile_max))
     tile_t = min(tile_max, _ceil_to(-(-T // (gx_cap * per_block)), 4))
@@ -182,7 +264,7 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool) -> LaunchPla
         n_tiles=n_tiles,
         grid_x=grid_x,
         grid_y=grid_y,
-        smem_bytes=_smem_bytes(NB, W, tile_t),
+        smem_bytes=_smem_bytes(NB, W, tile_t, C),
         groups=groups,
         group_cols=W,
     )
@@ -198,7 +280,28 @@ def _check(x_f, u, i_rest, s) -> bool:
             raise ValueError(f"{name} is {tuple(t.shape)}, expected {(T, N)}")
     if T == 0:
         raise ValueError("empty time axis")
-    tensors = (x_f, u, i_rest, s)
+    return _on_card((x_f, u, i_rest, s), T, x_f.shape[1], N)
+
+
+def _check_chains(x_f, u, i_rest, s) -> bool:
+    """Validate K3's operands, U (C, NB, N) and I_rest (C, T, N) against
+    X_f (T, NB) and S (T, N); True when they lie on a CUDA device."""
+    if x_f.ndim != 2 or u.ndim != 3 or x_f.shape[1] != u.shape[1]:
+        raise ValueError(f"x_f {tuple(x_f.shape)} and chains of u {tuple(u.shape)} do not chain")
+    T, (C, _, N) = x_f.shape[0], u.shape
+    if tuple(i_rest.shape) != (C, T, N):
+        raise ValueError(f"i_rest is {tuple(i_rest.shape)}, expected {(C, T, N)}")
+    if tuple(s.shape) != (T, N):
+        raise ValueError(f"s is {tuple(s.shape)}, expected {(T, N)}")
+    if T == 0 or C == 0:
+        raise ValueError("empty time or chain axis")
+    return _on_card((x_f, u, i_rest, s), T, x_f.shape[1], N)
+
+
+def _on_card(tensors, T: int, NB: int, N: int) -> bool:
+    """True for float32 contiguous operands on one CUDA device, False for
+    operands all on the CPU; anything else raises."""
+    x_f = tensors[0]
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return False
@@ -209,7 +312,7 @@ def _check(x_f, u, i_rest, s) -> bool:
             raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-    if T * max(x_f.shape[1], N) >= 2**31:
+    if T * max(NB, N) >= 2**31:
         raise ValueError("T·max(NB, N) must fit in a 32-bit index")
     return True
 
@@ -260,6 +363,56 @@ def _launch(with_grad: bool, x_f, u, i_rest, s, dt: float):
     return out[0]
 
 
+def _launch_chains(with_grad: bool, x_f, u, i_rest, s, dt: float):
+    """The C chains in :func:`chain_groups`' groups: one K3 launch for each
+    group of two or more, K1/K2 for a chain alone."""
+    C, NB, N = u.shape
+    outs, a = [], 0
+    for c in chain_groups(NB, N, C):
+        if c == 1:
+            got = _launch(with_grad, x_f, u[a], i_rest[a], s, dt)
+            got = tuple(t[None] for t in got) if with_grad else got[None]
+        else:
+            got = _launch_k3(with_grad, x_f, u[a : a + c], i_rest[a : a + c], s, dt)
+        outs.append(got)
+        a += c
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(t) for t in zip(*outs)) if with_grad else torch.cat(outs)
+
+
+def _launch_k3(with_grad: bool, x_f, u, i_rest, s, dt: float):
+    from theano_pyglm_torch.ops.cuda_loader import load_fused_ll
+
+    lib = load_fused_ll()
+    T, NB = x_f.shape
+    C, _, N = u.shape
+    dev = x_f.device
+    plan = launch_plan(T, NB, N, _sm_count(dev.index), with_grad, chains=C)
+    # float4 rows: dU (K3-vg), then one value per chain
+    n_du = C * NB * N if with_grad else 0
+    width = _ceil_to(n_du + C, 4)
+    part = torch.empty((plan.grid_x, width), dtype=torch.float32, device=dev)
+    out = torch.empty(width, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sizes = (T, NB, N, C, plan.tile_t, plan.grid_x, plan.grid_y, plan.smem_bytes,
+             dev.index, float(dt), math.log(dt), stream)
+    ins = (x_f.data_ptr(), u.data_ptr(), i_rest.data_ptr(), s.data_ptr())
+    scratch = (part.data_ptr(), out.data_ptr(), _barrier(dev, stream).data_ptr())
+    if with_grad:
+        d_irest = torch.empty((C, T, N), dtype=torch.float32, device=dev)
+        err = lib.fused_ll_vg_chains(*ins, d_irest.data_ptr(), *scratch, *sizes)
+    else:
+        err = lib.fused_ll_fwd_chains(*ins, *scratch, *sizes)
+    if err != 0:
+        msg = lib.fused_ll_error_string(err).decode()
+        raise RuntimeError(f"chain-batched fused Poisson-LL kernel launch failed: {msg} ({err})")
+    LAUNCHES["vg_chains" if with_grad else "fwd_chains"] += 1
+    if with_grad:
+        return out[n_du : n_du + C], out[:n_du].view(C, NB, N), d_irest
+    return out[:C]
+
+
 def fused_ll_value(x_f, u, i_rest, s, dt: float):
     """K1: the scalar log-likelihood (the gammaln(S+1) constant excluded)."""
     if _check(x_f, u, i_rest, s):
@@ -274,8 +427,24 @@ def fused_ll_value_and_grad(x_f, u, i_rest, s, dt: float):
     return fused_poisson_ll_reference(x_f, u, i_rest, s, dt)
 
 
+def fused_ll_value_chains(x_f, u, i_rest, s, dt: float):
+    """K3-fwd: the (C,) log-likelihoods of U (C, NB, N), I_rest (C, T, N),
+    in :func:`chain_groups`' groups."""
+    if _check_chains(x_f, u, i_rest, s):
+        return _launch_chains(False, x_f, u, i_rest, s, dt)
+    return fused_poisson_ll_chains_value_reference(x_f, u, i_rest, s, dt)
+
+
+def fused_ll_value_and_grad_chains(x_f, u, i_rest, s, dt: float):
+    """K3-vg: (ll (C,), dU (C, NB, N), dI_rest (C, T, N)) for a unit
+    cotangent of every chain's value, in :func:`chain_groups`' groups."""
+    if _check_chains(x_f, u, i_rest, s):
+        return _launch_chains(True, x_f, u, i_rest, s, dt)
+    return fused_poisson_ll_chains_reference(x_f, u, i_rest, s, dt)
+
+
 # ---------------------------------------------------------------------------
-# autograd op
+# autograd ops
 # ---------------------------------------------------------------------------
 
 
@@ -316,9 +485,70 @@ def fused_poisson_ll(x_f, u, i_rest, s, dt: float):
 
     Returns the scalar log-likelihood (the gammaln(S+1) constant excluded —
     add it outside if absolute values must match scipy). Differentiable in
-    ``u`` and ``i_rest``.
+    ``u`` and ``i_rest``. Where any operand carries a leading chain axis, as
+    the JAX op does under ``vmap``, this is :func:`fused_poisson_ll_chains`
+    and returns the (C,) values.
     """
+    if max(x_f.ndim, u.ndim, i_rest.ndim, s.ndim) == 3:
+        return fused_poisson_ll_chains(x_f, u, i_rest, s, dt)
     return FusedPoissonLL.apply(
         x_f.contiguous(), u.contiguous(), i_rest.contiguous(), s.contiguous(), float(dt)
     )
 
+
+
+class FusedPoissonLLChains(torch.autograd.Function):
+    """The (C,) chain-batched fused log-likelihood with its one-pass
+    gradient: K3-vg when ``u`` or ``i_rest`` needs a gradient, else K3-fwd.
+    ``backward`` scales each chain's residuals by its entry of the (C,)
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x_f, u, i_rest, s, dt):
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            ll, d_u, d_irest = fused_ll_value_and_grad_chains(x_f, u, i_rest, s, dt)
+            ctx.save_for_backward(d_u, d_irest)
+            return ll
+        return fused_ll_value_chains(x_f, u, i_rest, s, dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_u, d_irest = ctx.saved_tensors
+        g = g[:, None, None]
+        g_u = g * d_u if ctx.needs_input_grad[1] else None
+        g_irest = g * d_irest if ctx.needs_input_grad[2] else None
+        return None, g_u, g_irest, None, None
+
+
+def fused_poisson_ll_chains(x_f, u, i_rest, s, dt: float):
+    """The (C,) fused log-likelihoods of C chains: the counterpart of the
+    JAX op under ``vmap`` over a chain axis (its ``custom_vmap`` rules).
+
+    Args:
+      x_f: (T, NB) design, or (C, T, NB).
+      u: (C, NB, N) combined coupling weights, or (NB, N) for every chain.
+      i_rest: (C, T, N) non-coupling currents, or (T, N) for every chain.
+      s: (T, N) spike counts, or (C, T, N).
+      dt: bin width.
+
+    At least one operand carries the chain axis. With X_f and S shared the
+    chains go through the chain wrappers (a missing chain axis of U or
+    I_rest is broadcast): K3 on the groups of :func:`chain_groups`, K1/K2 on
+    a chain alone. Where X_f or S carries the chain axis (JAX maps the
+    unbatched op there) each chain runs K1/K2 in turn. Differentiable in
+    ``u`` and ``i_rest``.
+    """
+    batched = [t for t in (u, i_rest, x_f, s) if t.ndim == 3]
+    if not batched:
+        raise ValueError("no operand carries a chain axis: use fused_poisson_ll")
+    C = batched[0].shape[0]
+    if x_f.ndim == 3 or s.ndim == 3:
+        per = [t if t.ndim == 3 else t.expand(C, *t.shape) for t in (x_f, u, i_rest, s)]
+        return torch.stack([fused_poisson_ll(*(t[c] for t in per), dt) for c in range(C)])
+    if u.ndim == 2:
+        u = u.expand(C, *u.shape)
+    if i_rest.ndim == 2:
+        i_rest = i_rest.expand(C, *i_rest.shape)
+    return FusedPoissonLLChains.apply(
+        x_f.contiguous(), u.contiguous(), i_rest.contiguous(), s.contiguous(), float(dt)
+    )

@@ -2,12 +2,17 @@
 
 Chains are independent runs of the sweep of
 :mod:`theano_pyglm_torch.inference.mcmc`, each with its own
-``torch.Generator`` derived from the caller's seed. In this port they run
-as a loop over per-chain states on one device; the JAX package ``vmap``s
-the sweep over a leading chain axis, which needs the chain-batched fused
-kernel K3 (ROADMAP.md, queue 2) and a chain dimension through every stage.
-Sharding chains over several devices (``mesh``) is not ported yet (queue 1
-item 14).
+``torch.Generator`` derived from the caller's seed. As the JAX package
+``vmap``s the sweep over a leading chain axis, the port runs one sweep over
+the chains' batched state: every tensor of the state carries the chain axis
+first, every stage updates all chains at once, and the likelihood of all
+chains is one launch of the chain-batched kernel K3 (ops/kernels.py; one
+per group of chains where K3 does not take all of them). Each
+chain's generator makes the draws that chain would make alone, so the
+chains equal independent one-chain runs draw for draw. The spatiotemporal
+and shared glm blocks run chain by chain inside the sweep (ROADMAP.md,
+queue 1). Sharding chains over several devices (``mesh``) is not ported
+yet (queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ from theano_pyglm_torch.inference.mcmc import (
     _GLM_KEYS,
     _run,
     _Store,
+    chain_state,
     init_mcmc_state,
     make_sweep,
+    stack_states,
 )
 from theano_pyglm_torch.utils.diagnostics import summarize_chains
 
@@ -39,25 +46,24 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     return s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
 
 
-def _share_adaptation(states: list) -> list:
+def _share_adaptation(state: dict) -> dict:
     """Consensus adaptation at the warmup→sampling boundary: every chain
     samples with the across-chain median step size and diagonal mass.
 
     Chains are exchangeable runs of one kernel, so sharing a fixed
     post-warmup step size and mass is valid MCMC, and it removes the failure
     where one chain's dual averaging ends at a step size the post-warmup
-    region rejects outright. ``states`` is one state dict per chain."""
-    out = [dict(s) for s in states]
-    for name, first in states[0].items():
-        if not isinstance(first, HMCState):
+    region rejects outright. ``state`` is the chains' batched state; the
+    params pass through."""
+    out = dict(state)
+    for name, h in state.items():
+        if not isinstance(h, HMCState):
             continue
-        blocks = [s[name] for s in states]
         # sampling derives ε from log_eps_avg each step, so that is what is
         # shared; step_size follows for the diagnostics
-        med = _median(torch.stack([h.log_eps_avg for h in blocks]))
-        scale = {k: _median(torch.stack([h.scale[k] for h in blocks])) for k in first.scale}
-        for o, h in zip(out, blocks):
-            o[name] = h._replace(step_size=torch.exp(med), log_eps_avg=med, scale=dict(scale))
+        med = _median(h.log_eps_avg).expand_as(h.log_eps_avg).clone()
+        scale = {k: _median(v).expand_as(v).clone() for k, v in h.scale.items()}
+        out[name] = h._replace(step_size=torch.exp(med), log_eps_avg=med, scale=scale)
     return out
 
 
@@ -104,13 +110,15 @@ def gibbs_sample_chains(
     arrays shaped (n_samples, n_chains, ...); diagnostics has the per-leaf
     split-R̂ and ESS under ``convergence``, and per-chain accept rates and
     step sizes of each block, with ``accept_rate_adjacency`` the birth–death
-    move's mean acceptance over all sweeps; states is the list of the
-    chains' final states. ``callback(phase, sweeps done in the phase,
-    states)`` runs every ``chunk_size`` sweeps.
+    move's mean acceptance over all sweeps; states is a list of per-chain
+    views of the final batched state (``states[c]`` is
+    :func:`~theano_pyglm_torch.inference.mcmc.chain_state` of chain c).
+    ``callback(phase, sweeps done in the phase, states)`` runs every
+    ``chunk_size`` sweeps with such a list.
 
     Checkpoints as in :func:`theano_pyglm_torch.inference.mcmc.gibbs_sample`:
-    with ``checkpoint_dir`` every chain's state and generator state are
-    saved where a chunk crosses a multiple of ``checkpoint_every`` (0: every
+    with ``checkpoint_dir`` the chains' batched state and every generator's
+    state are saved where a chunk crosses a multiple of ``checkpoint_every`` (0: every
     chunk) and at the end, each sampling chunk's draws are kept as
     ``samples_*.npz``, and ``resume=True`` continues exactly from the latest
     checkpoint, the generators set to their saved states.
@@ -127,9 +135,9 @@ def gibbs_sample_chains(
     seeds = _chain_seeds(seed, n_chains + 1)
     gens = [torch.Generator(device=pop.device).manual_seed(s) for s in seeds[:n_chains]]
     if init_params is None:
-        inits = [pop.sample(g) for g in gens]
+        inits = stack_states([pop.sample(g) for g in gens])
     else:
-        inits = [dict(init_params) for _ in range(n_chains)]
+        inits = {k: v.expand(n_chains, *v.shape).clone() for k, v in init_params.items()}
         if init_jitter > 0:
             g_jit = torch.Generator(device=pop.device).manual_seed(seeds[-1])
             # 'locs' is both a block key and named again, so it is jittered
@@ -139,23 +147,26 @@ def gibbs_sample_chains(
                     x = init_params[name]
                     noise = torch.randn((n_chains,) + tuple(x.shape), generator=g_jit,
                                         dtype=x.dtype, device=x.device)
-                    for c in range(n_chains):
-                        inits[c][name] = inits[c][name] + init_jitter * noise[c]
-    states = [init_mcmc_state(pop, p, step_size=step_size) for p in inits]
+                    inits[name] = inits[name] + init_jitter * noise
+    state = init_mcmc_state(pop, inits, step_size=step_size)
 
-    def step(states, adapt, beta):
-        return [sweep(g, s, adapt, beta) for g, s in zip(gens, states)]
+    def step(state, adapt, beta):
+        return sweep(gens, state, adapt, beta)
 
+    def views(state):
+        return [chain_state(state, c) for c in range(n_chains)]
+
+    cb = None if callback is None else (lambda phase, done, state: callback(phase, done, views(state)))
     store = None if checkpoint_dir is None else _Store(checkpoint_dir, checkpoint_every, gens, pop.device)
-    states, samples, acc = _run(
-        step, states, n_warmup, n_samples, thin, chunk_size, anneal_frac, callback,
+    state, samples, acc = _run(
+        step, state, n_warmup, n_samples, thin, chunk_size, anneal_frac, cb,
         end_of_warmup=_share_adaptation, store=store, resume=resume,
     )
     diagnostics = {"convergence": summarize_chains(samples)}
     for name in ("glm", "imp", "latent"):
-        if name in states[0]:
-            diagnostics[f"accept_rate_{name}"] = np.array([float(s[name].accept_rate) for s in states])
-            diagnostics[f"step_size_{name}"] = np.array([float(s[name].step_size) for s in states])
+        if name in state:
+            diagnostics[f"accept_rate_{name}"] = state[name].accept_rate.cpu().double().numpy()
+            diagnostics[f"step_size_{name}"] = state[name].step_size.cpu().double().numpy()
     if acc is not None:
         diagnostics["accept_rate_adjacency"] = acc
-    return samples, diagnostics, states
+    return samples, diagnostics, views(state)

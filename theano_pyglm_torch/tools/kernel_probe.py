@@ -45,23 +45,22 @@ VARIANTS = {
 EDITS = [
     ("    const bool lead_y = ys == 0;\n",
      "    const bool lead_y = ys == 0;\n    if (PROBE_EXIT) return;\n"),
-    ("        const int span = whole ? rows * N : 0, strided = whole ? 0 : rows * nc;\n"
-     "        const int n[3] = {rows * NB, span, span};",  # nothing to copy: the barrier still completes
+    # a tile of no rows: nothing to copy, the barrier still completes
+    ("        const int t0 = tile * tile_t, rows = min(tile_t, T - t0);\n",
      "        const int keep = !(PROBE_NO_COPY && tile != blockIdx.x);\n"
-     "        const int span = keep * (whole ? rows * N : 0), strided = keep * (whole ? 0 : rows * nc);\n"
-     "        const int n[3] = {keep * rows * NB, span, span};"),
+     "        const int t0 = tile * tile_t, rows = keep * min(tile_t, T - t0);\n"),
     ("    return cudaLaunchCooperativeKernel(",
      "    if (PROBE_PLAIN_LAUNCH) {\n"
-     "        fused_ll_tiles<kGrad><<<dim3(grid_x, grid_y * G), kThreads, smem_bytes, stream>>>(\n"
-     "            x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, W, tile_t, dt, log_dt);\n"
+     "        fused_ll_tiles<kGrad, kChains><<<dim3(grid_x, grid_y * G), kThreads, smem_bytes, stream>>>(\n"
+     "            x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, W, tile_t, dt, log_dt, C);\n"
      "        return cudaGetLastError();\n"
      "    }\n"
      "    return cudaLaunchCooperativeKernel("),
     ("for (int kk = 0; kk < KP; kk += 8) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 8) {"),
     ("            if (owns_du) {\n", "            if (owns_du && !PROBE_NO_BWD) {\n"),
-    ("if (r < rows && n < nc) {  // the ragged",
-     "if (PROBE_NO_EPI) part += acc_lo[j][c] + acc_hi[j][c];\n"
-     "                    if (!PROBE_NO_EPI && r < rows && n < nc) {  // the ragged"),
+    ("if (r < rows && col < nc) {  // the ragged",
+     "if (PROBE_NO_EPI) part[0] += acc_lo[j][c] + acc_hi[j][c];\n"
+     "                    if (!PROBE_NO_EPI && r < rows && col < nc) {  // the ragged"),
 ]
 FLAGSHIP, DT = (60_000, 135, 27), 1e-3
 

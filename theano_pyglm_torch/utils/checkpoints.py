@@ -2,8 +2,8 @@
 :mod:`theano_pyglm_tpu.utils.checkpoints`.
 
 A checkpoint holds the complete sampler state: the params, every HMC
-block's state, each chain's ``torch.Generator`` state (CPU or CUDA) and the
-iteration, so a resumed chain continues exactly (the same draws, the same
+block's state (of all chains, batched), each chain's ``torch.Generator``
+state (CPU or CUDA) and the iteration, so a resumed chain continues exactly (the same draws, the same
 step sizes). One file per step, ``ckpt_<step>.pt``, written with
 ``torch.save`` (the JAX package uses orbax) and read back with
 ``weights_only=True``: :class:`HMCState` records are stored as tagged
@@ -60,9 +60,10 @@ def _path(directory: str, step: int) -> str:
 
 def save_checkpoint(directory: str, step: int, state, generators, max_to_keep: int = 3) -> None:
     """Persist sampler state at iteration ``step``. ``state`` is any nesting
-    of dicts, lists, :class:`HMCState` records and tensors (the MCMC
-    state of one chain, or a list of them); ``generators`` the chains'
-    generators, whose states are saved. The file is written under a
+    of dicts, lists, :class:`HMCState` records and tensors (the MCMC state
+    of one chain, or the chains' batched state, every tensor with a leading
+    chain axis); ``generators`` the chains' generators, whose states are
+    saved. The file is written under a
     temporary name and renamed, so a run cut off while saving leaves the
     previous checkpoints intact; then all but the newest ``max_to_keep``
     are deleted."""
