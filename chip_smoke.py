@@ -9,8 +9,8 @@ H100, sm_90a):
 Phases, each of which raises on a mismatch or a non-finite value:
 
 1. Setup: TF32 off for matmuls and convolutions, build the hand-written CUDA
-   kernels from theano_pyglm_torch/csrc/ with nvcc, read the card's name
-   and power limit.
+   kernels from theano_pyglm_torch/csrc/ with nvcc (one process per source,
+   started together), read the card's name and power limit.
 2. Kernels K1 (value) and K2 (value+grad) of the fused Poisson
    log-likelihood against their plain PyTorch version at the flagship shape
    (T=60,000, N·B=135, N=27), with a clipped case, bit-for-bit repeatability,
@@ -114,6 +114,25 @@ Phases, each of which raises on a mismatch or a non-finite value:
    cli generate, map and mcmc (40 + 20): every output written (the figure
    where matplotlib is installed), every likelihood evaluation through K1
    or K2 and both launched.
+10. The bf16 spike design (Population(design_dtype=torch.bfloat16)), K4.
+   10a: K4-fwd and K4-vg (no chain axis: U float32) and K4-fwd-chains and
+   K4-vg-chains (4 chains: U and dI rounded to bf16) against their plain
+   versions at the flagship shape, with a clipped case, bit-for-bit
+   repeats, one launch per call, warm and cold median times of 50 calls
+   beside the plain version's and beside K1/K2/K3 on the widened X_f, the
+   bound (bf16 X_f bytes; the chain kernels' bf16 products at 989 TFLOP/s)
+   and share; the chain pair likewise at configs 2-4's shapes. 10b: phase
+   3's spikes, stimulus and model with a bf16 design: prepare_data, smart
+   init, MAP (K4-vg launches equal to the L-BFGS evaluations), then
+   rgc_flagship.run with 4 chains x (20 + 10) batched sweeps (K4-chains
+   launches as the sweep implies, none of K1-K3 or of K4 without a chain
+   axis), leaves finite, A binary; the card's bf16 log-joints at the final
+   state against the CPU's bf16 (1e-5 rel., with and without a chain
+   axis); bf16 against float32 at the float32 MAP point (log-joint,
+   gradient and coupling current, reported); the bf16 batched sweep's ms
+   beside the float32 one's in turns. 10c: one batched bf16 sweep against
+   C = 1 in turn, each with a chain axis of 1 (the chain semantics, K4-chains
+   only), at phase 5's limits.
 
 Depths cut to keep the script near 10 minutes once phases 8-9 came (their
 widths, N and T, are not cut; no warmup is cut): the kept sweeps of phase
@@ -124,16 +143,20 @@ the diagonal mass of each HMC block its model has: the impulse block (imp)
 in phases 5, 6 (config 4), 7a, 7b, 7d, 8d and 9; the latent locations in
 phases 5 and 7d; the whitened glm-HMC block in 7d (glm_update='hmc').
 Configs 2 and 3 keep their 20 warmup sweeps (step size only), as before.
+Phase 10's sampler runs 20 warmup sweeps (step size only): its depth is
+cut before any other phase's.
 
 The samplers of more than one chain (phases 5, 6 configs 2-4, 7a, 7f) run
 one batched sweep over their chains and launch K3; the one-chain samplers
 (7b, 7c, 7d, 8d, 9) run the same sweep at C = 1, where K1/K2 carry the
-likelihood.
+likelihood. With a bf16 design (phase 10) every sampler evaluation is a
+K4-chains launch, at any C.
 
 The line before the last two is one JSON object describing the kernels
-K1, K2, K3-fwd and K3-vg (times and errors from phase 2, launches summed
-over the paths of phases 3, 5, 6, 7, 8 and 9, each of which must have
-launched at least once), the next the card's name and power limit; the last
+K1, K2, K3-fwd and K3-vg (times and errors from phase 2) and the four K4
+(from 10a), with launches summed over the paths of phases 3, 5, 6, 7, 8, 9
+and 10, each of which must have launched at least once; the next the
+card's name and power limit; the last
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -158,12 +181,12 @@ from theano_pyglm_torch.inference import ars, gibbs  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
 from theano_pyglm_torch.inference.map import cross_validate_lambda, map_fit, sparse_map_fit, split_params  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, gibbs_sample, make_sweep  # noqa: E402
-from theano_pyglm_torch.inference.mcmc import chain_state, stack_states  # noqa: E402
+from theano_pyglm_torch.inference.mcmc import chain_state, init_mcmc_state, stack_states  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import whitening_factor  # noqa: E402
 from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  # noqa: E402
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
-from theano_pyglm_torch.ops.cuda_loader import SOURCE, build_fused_ll, load_fused_ll  # noqa: E402
+from theano_pyglm_torch.ops.cuda_loader import SOURCE, SOURCE_BF16, build_all, load_fused_ll, load_fused_ll_bf16  # noqa: E402
 from theano_pyglm_torch.parallel import gibbs_sample_chains  # noqa: E402
 from theano_pyglm_torch.scripts import acceptance, rgc_flagship  # noqa: E402
 from theano_pyglm_torch.utils.diagnostics import adjusted_rand_index  # noqa: E402
@@ -191,6 +214,7 @@ def gpu_name_and_power() -> str:
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak rates
 FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # bf16 × bf16 on the tensor cores, dense
 
 
 def median_ms(fn, n: int = 50, warmup: int = 3, flush=None, device_only: bool = True) -> float:
@@ -222,11 +246,13 @@ def median_ms(fn, n: int = 50, warmup: int = 3, flush=None, device_only: bool = 
 
 def bound(k: str, ops, x_reads: int = 1) -> tuple:
     """(ms, resource): the least time the card could take for kernel k on
-    these operands: each input read once, each output written once, against
-    the float32 multiply-adds of the product(s). ``x_reads``: count X_f that
-    many times (the kernels read it once per column group). K3's operands
-    carry C chains of U and I_rest: C times the products and outputs, one
-    read of X_f and S."""
+    these operands: each input read once (at its element size: a bf16 X_f
+    is 2 bytes), each output written once, against the multiply-adds of the
+    product(s): float32 operations at FP32_FLOP_PER_S, the chain kernels'
+    bf16 × bf16 products of a bf16 X_f (K4-chains) at BF16_FLOP_PER_S.
+    ``x_reads``: count X_f that many times (the kernels read it once per
+    column group). K3's operands carry C chains of U and I_rest: C times the
+    products and outputs, one read of X_f and S."""
     x, u, ir, s = ops
     T, NB = x.shape
     N = u.shape[-1]
@@ -238,7 +264,8 @@ def bound(k: str, ops, x_reads: int = 1) -> tuple:
         flops *= 2  # X_fᵀ @ dI_rest
     else:
         nbytes += 4 * C
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if "chains" in k and x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -247,7 +274,10 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-KERNELS = ("fwd", "vg", "fwd_chains", "vg_chains")  # K1, K2, K3-fwd, K3-vg: kernels.LAUNCHES' keys
+F32_KERNELS = ("fwd", "vg", "fwd_chains", "vg_chains")  # K1, K2, K3-fwd, K3-vg
+BF16_KERNELS = tuple(k + "_bf16" for k in F32_KERNELS)  # K4-fwd, K4-vg, K4-fwd-chains, K4-vg-chains
+KERNELS = F32_KERNELS + BF16_KERNELS  # kernels.LAUNCHES' keys
+assert set(KERNELS) == set(kernels.LAUNCHES)
 
 
 def zero_launches() -> None:
@@ -255,8 +285,9 @@ def zero_launches() -> None:
     kernels.LAUNCHES.update({k: 0 for k in KERNELS})
 
 
-def launches_of(fwd=0, vg=0, fwd_chains=0, vg_chains=0) -> dict:
-    return {"fwd": fwd, "vg": vg, "fwd_chains": fwd_chains, "vg_chains": vg_chains}
+def launches_of(**counts) -> dict:
+    """Launch counts of every kernel: those given, the rest 0."""
+    return {**dict.fromkeys(KERNELS, 0), **counts}
 
 
 # --- phase 1 ----------------------------------------------------------------
@@ -270,12 +301,15 @@ def setup() -> str:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    path, build_log = build_fused_ll()
+    built = build_all()  # one nvcc per source, started together
     load_fused_ll()
-    log(f"built {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    load_fused_ll_bf16()
+    log(f"built {', '.join(os.path.relpath(p, REPO) for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for _, build_log in built.values():
+        for line in build_log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
     card = gpu_name_and_power()
     log(f"gpu: {card}")
     return card
@@ -664,16 +698,23 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
-def _require_sweep_launches(what, launches, ll_evals, chains, sweeps) -> None:
+def _require_sweep_launches(what, launches, ll_evals, chains, sweeps, bf16=False) -> None:
     """Kernel launches of a sampler run as the sweep implies. Per batched
     sweep only the impulse block evaluates the fused likelihood, once for
     all chains: a value-only re-anchoring of its log-density, then one HMC
     transition of L leapfrog steps, two gradients a step and a value-only
     end point. With C > 1 chains each evaluation is one K3 launch, and K1/K2
     launch none (K3-vg = sweeps·2L, K3-fwd = sweeps·2, whatever C is); one
-    chain is K1/K2's (K2 = sweeps·2L, K1 = sweeps·2)."""
+    chain is K1/K2's (K2 = sweeps·2L, K1 = sweeps·2). A bf16 design
+    (``bf16``): every evaluation one K4-chains launch, one chain included
+    (the batched sweep carries a chain axis), and no other kernel."""
     per = {"fwd": sweeps * 2, "vg": sweeps * 2 * LEAPFROG_STEPS}
-    want = launches_of(fwd_chains=per["fwd"], vg_chains=per["vg"]) if chains > 1 else launches_of(**per)
+    if bf16:
+        want = launches_of(fwd_chains_bf16=per["fwd"], vg_chains_bf16=per["vg"])
+    elif chains > 1:
+        want = launches_of(fwd_chains=per["fwd"], vg_chains=per["vg"])
+    else:
+        want = launches_of(**per)
     require(launches == want, f"{what}: kernel launches {launches} != {want} implied by the sweep")
     require(ll_evals == {"grad": per["vg"], "value": per["fwd"]},
             f"{what}: likelihood evaluations {ll_evals}: some took the plain path on the card")
@@ -1105,7 +1146,7 @@ ACCEPT_RUNS = {1: accept_config1, 2: accept_config2, 3: accept_config3, 4: accep
 #: the chains of each config's batched sampler (K3's C at its shape)
 ACCEPT_SAMPLER_CHAINS = {2: POST_CHAINS, 3: C3_CHAINS, 4: C4_CHAINS}
 #: the kernels each config's path launches: MAP-like fits K1/K2, the samplers K3
-ACCEPT_KERNELS = {1: ("fwd", "vg"), 2: KERNELS, 3: KERNELS, 4: ("fwd_chains", "vg_chains")}
+ACCEPT_KERNELS = {1: ("fwd", "vg"), 2: F32_KERNELS, 3: F32_KERNELS, 4: ("fwd_chains", "vg_chains")}
 
 
 def acceptance_phase(dev, card) -> dict:
@@ -1734,6 +1775,226 @@ def _harness(dev, card, work) -> dict:
     log(f"phase 9: {time.perf_counter() - t_phase:.2f} s; launches on its paths {launches}")
     return launches
 
+# --- phase 10 ---------------------------------------------------------------
+
+
+BF16_CHAINS, BF16_WARMUP, BF16_SAMPLES = 4, 20, 10  # depth cut (see the module note)
+
+
+def _bf16_operands(dev, T, N, C, clip_entries=0):
+    """:func:`_chain_operands` with X_f rounded to bf16."""
+    x, u, ir, s = _chain_operands(dev, T, N, C, clip_entries)
+    return [x.to(torch.bfloat16), u, ir, s]
+
+
+def check_bf16_kernels(dev, T, N, C, label, card, one_chain=True) -> dict:
+    """K4-fwd-chains and K4-vg-chains on C chains at (T, NB=5N, N) and, with
+    ``one_chain``, K4-fwd and K4-vg on chain 0 without a chain axis, against
+    their plain versions (float32 sums in another order: each value 1e-5
+    relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 / atol=1e-6), with a
+    clipped case; bit-for-bit repeats, one launch per call; the median
+    times of 50 calls, warm and L2-cold, beside the plain version's and
+    beside the float32 kernel on the same widened X_f (K1, K2, K3-fwd,
+    K3-vg) in the same call; the bound (a bf16 X_f read once; the chain
+    kernels' products at the bf16 rate) and the roofline share."""
+    def one(ops):
+        return [ops[0], ops[1][0].contiguous(), ops[2][0].contiguous(), ops[3]]
+
+    pairs = [("fwd_chains_bf16", kernels.fused_ll_value_chains, kernels.fused_poisson_ll_chains_value_reference,
+              lambda o: o),
+             ("vg_chains_bf16", kernels.fused_ll_value_and_grad_chains, kernels.fused_poisson_ll_chains_reference,
+              lambda o: o)]
+    if one_chain:
+        pairs += [("fwd_bf16", kernels.fused_ll_value, kernels.fused_poisson_ll_value_reference, one),
+                  ("vg_bf16", kernels.fused_ll_value_and_grad, kernels.fused_poisson_ll_reference, one)]
+    max_err = {}
+    for clip_entries in (0, 500):
+        all_ops = _bf16_operands(dev, T, N, C, clip_entries)
+        for k, kern, plain, pick in pairs:
+            ops = pick(all_ops)
+            got, want = kern(*ops, DT), plain(*ops, DT)
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            rel_v = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+            require(bool(torch.isfinite(got[0]).all()), f"{label}: non-finite {k} value")
+            require(rel_v <= 1e-5, f"{label}: {k} value rel err {rel_v}")
+            msg = f"value rel {rel_v:.3e}"
+            err = float((got[0] - want[0]).abs().max())
+            if len(got) == 3:
+                rel_du = _rel(got[1], want[1])
+                require(rel_du <= 1e-5, f"{label}: {k} dU rel-L2 err {rel_du}")
+                torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+                err_dir = float((got[2] - want[2]).abs().max())
+                msg += f", dU rel-L2 {rel_du:.3e}, dI_rest max abs {err_dir:.3e}"
+                err = max(err, float((got[1] - want[1]).abs().max()), err_dir)
+                if clip_entries:
+                    n_clipped = int((ops[2].abs() > 40.0).sum())
+                    require(n_clipped > 0 and int((got[2] == 0).sum()) >= n_clipped,
+                            f"{label}: {k} clip mask not applied")
+            if not clip_entries:
+                max_err[k] = err
+            log(f"{label} T={T} N={N} C={C}, {k} vs plain (clipped entries {clip_entries}): {msg}")
+
+    all_ops = _bf16_operands(dev, T, N, C)
+    wide = [all_ops[0].float()] + all_ops[1:]
+    launches = dict(kernels.LAUNCHES)
+    for k, kern, _, pick in pairs:
+        a, b = kern(*pick(all_ops), DT), kern(*pick(all_ops), DT)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        require(all(torch.equal(x, y) for x, y in zip(a, b)), f"{label}: {k} not bit-for-bit repeatable")
+    want = {**launches, **{k: launches[k] + 2 for k, *_ in pairs}}
+    require(kernels.LAUNCHES == want, f"{label}: K4 not one launch per call: {launches} -> {kernels.LAUNCHES}")
+    log(f"{label}: K4 repeats bit for bit, one launch per call")
+
+    flush = torch.empty(40 * 2**20, dtype=torch.float32, device=dev)  # 160 MB
+    f32_of = {"fwd_bf16": kernels.fused_ll_value, "vg_bf16": kernels.fused_ll_value_and_grad,
+              "fwd_chains_bf16": kernels.fused_ll_value_chains, "vg_chains_bf16": kernels.fused_ll_value_and_grad_chains}
+    stats = {}
+    for k, kern, plain, pick in pairs:
+        ops, ops32 = pick(all_ops), pick(wide)
+        warm, cold = median_ms(lambda: kern(*ops, DT)), median_ms(lambda: kern(*ops, DT), flush=flush)
+        plain_warm, plain_cold = median_ms(lambda: plain(*ops, DT)), median_ms(lambda: plain(*ops, DT), flush=flush)
+        f32_warm = median_ms(lambda: f32_of[k](*ops32, DT))
+        f32_cold = median_ms(lambda: f32_of[k](*ops32, DT), flush=flush)
+        bound_ms, bound_by = bound(k, ops)
+        share = bound_ms / cold
+        plan = kernels.launch_plan(T, 5 * N, N, kernels._sm_count(dev.index), k.startswith("vg"),
+                                   chains=C if "chains" in k else None, x_bytes=2)
+        log(f"{label} T={T} NB={5 * N} N={N}{f' C={C}' if 'chains' in k else ''}, median of 50 calls, {k}: kernel "
+            f"{warm:.4f} ms warm, {cold:.4f} ms cold; plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms "
+            f"cold; the float32 kernel on the widened X_f {f32_warm:.4f} ms warm, {f32_cold:.4f} ms cold; bound "
+            f"{bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; tile "
+            f"{plan.tile_t}, grid {plan.grid_x} x {plan.grid_y * plan.groups}, {plan.smem_bytes} B of shared "
+            f"memory [{card}]")
+        stats[k] = {"max_abs_err": max_err[k], "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
+                    "plain_cold_ms": plain_cold, "f32_kernel_ms": f32_warm, "f32_kernel_cold_ms": f32_cold,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "share": share, "library_ms": None}
+    return stats
+
+
+def _bf16_state_rel(pop32, pop16, params, data32, data16) -> tuple:
+    """(log-joint relative delta, gradient rel-L2 over the continuous
+    block, coupling current rel-L2) of the bf16 design against float32 at
+    ``params``."""
+    def value_and_grad(pop, data):
+        q, frozen = split_params(params)
+        q = {k: v.detach().clone().requires_grad_(True) for k, v in q.items()}
+        val = pop.log_joint({**frozen, **q}, data)
+        grads = torch.autograd.grad(val, list(q.values()))
+        return float(val.detach()), torch.cat([g.reshape(-1) for g in grads])
+
+    v32, g32 = value_and_grad(pop32, data32)
+    v16, g16 = value_and_grad(pop16, data16)
+    with torch.no_grad():
+        i32 = gibbs._coupling_current(pop32, params, data32)
+        i16 = gibbs._coupling_current(pop16, params, data16)
+    return abs(v16 - v32) / abs(v32), rel_l2(g16, g32), rel_l2(i16, i32)
+
+
+def bf16_phase(sl, card: str) -> dict:
+    """10b and 10c: the flagship with design_dtype=torch.bfloat16 on phase
+    3's spikes, stimulus and model; returns the kernels' launches on its
+    paths (smart init and MAP; the sampler)."""
+    dev = sl["pop"].device
+    pop32, data32 = sl["pop"], sl["data"]
+    pop = CountingPopulation(sl["spec"], device=dev, design_dtype=torch.bfloat16)
+    t_phase = time.perf_counter()
+    zero_launches()
+    evals0 = dict(pop.ll_evals)
+    t0 = time.perf_counter()
+    data = pop.prepare_data(data32["S"], stim=sl["stim"])
+    require(data["X_imp"].dtype == torch.bfloat16 and data["_X_imp_mean"].dtype == torch.float32,
+            "10b: prepare_data did not cast the design")
+    init = smart_initialize(pop, data, torch.Generator().manual_seed(SEED))
+    fit, lp_map, iters = map_fit(pop, data, init)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    ll_evals = {k: pop.ll_evals[k] - evals0[k] for k in evals0}
+    path = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        lp_init = float(pop.log_joint(init, data))
+    log(f"10b bf16 design: prepare_data, smart init and MAP in {t_map:.2f} s: log-joint {float(lp_map):.3f} after "
+        f"{iters} L-BFGS iterations (smart init {lp_init:.3f}); likelihood evaluations {ll_evals}; launches {path}")
+    require(math.isfinite(float(lp_map)) and float(lp_map) >= lp_init, f"10b: MAP {lp_map} below the init {lp_init}")
+    require(path == launches_of(vg_bf16=ll_evals["grad"], fwd_bf16=ll_evals["value"]) and ll_evals["grad"] > 0,
+            f"10b: MAP launches {path} against likelihood evaluations {ll_evals}")
+
+    rel_lj, rel_g, rel_i = _bf16_state_rel(pop32, pop, sl["params"], data32, data)
+    log(f"10b bf16 against float32 at the float32 MAP point: log-joint rel {rel_lj:.3e}, gradient rel-L2 "
+        f"{rel_g:.3e}, coupling current rel-L2 {rel_i:.3e}")
+    require(all(math.isfinite(v) for v in (rel_lj, rel_g, rel_i)), "10b: non-finite bf16 against float32")
+
+    zero_launches()
+    ll0 = dict(pop.ll_evals)
+    t0 = time.perf_counter()
+    samples, diag, states, summary = rgc_flagship.run(
+        pop, data, sl["true"], fit, seed=SEED, n_chains=BF16_CHAINS, n_iters=BF16_SAMPLES,
+        n_warmup=BF16_WARMUP, thin=1, n_leapfrog=LEAPFROG_STEPS, init_jitter=0.05, chunk_size=BF16_SAMPLES,
+    )
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ll_evals = {k: pop.ll_evals[k] - ll0[k] for k in ll0}
+    sweeps = BF16_WARMUP + BF16_SAMPLES
+    log(f"10b bf16 Gibbs: {BF16_CHAINS} chains x ({BF16_WARMUP} + {BF16_SAMPLES}) in {t_run:.2f} s "
+        f"({1e3 * t_run / sweeps:.1f} ms per 4-chain sweep, sampler and summary) [{card}]; launches {launches}; "
+        f"likelihood evaluations {ll_evals}")
+    _require_sweep_launches("10b bf16 Gibbs", launches, ll_evals, BF16_CHAINS, sweeps, bf16=True)
+    _require_chains("10b bf16 Gibbs", states, samples)
+    _require_accept_rates("10b bf16 Gibbs", diag)
+    min_ess = min(v["min_ess"] for v in summary["convergence"].values())
+    max_rhat = max(v["max_rhat"] for v in summary["convergence"].values())
+    log(f"10b bf16: accept rates glm {diag['accept_rate_glm']}, imp {diag['accept_rate_imp']}, adjacency "
+        f"{diag['accept_rate_adjacency']}; link-prediction AUC {summary['link_prediction_auc']}, smallest ESS "
+        f"{min_ess:.2f}, largest R-hat {max_rhat:.3f} (10 draws: reported, not checked)")
+    path = _add(path, launches)
+
+    # the card's bf16 against the CPU's bf16 at the final state, both semantics
+    batched = stack_states(states)["params"]
+    cpu = Population(sl["spec"], device="cpu", design_dtype=torch.bfloat16)
+    data_cpu = cpu.prepare_data(data32["S"].cpu(), stim=sl["stim"])
+    p_cpu = {k: v.detach().cpu() for k, v in batched.items()}
+    with torch.no_grad():
+        got_c, want_c = pop.log_joint(batched, data).cpu(), cpu.log_joint(p_cpu, data_cpu)
+        p0, p0_cpu = {k: v[0] for k, v in batched.items()}, {k: v[0] for k, v in p_cpu.items()}
+        got_1, want_1 = float(pop.log_joint(p0, data)), float(cpu.log_joint(p0_cpu, data_cpu))
+    err_c = float(((got_c - want_c).abs() / want_c.abs()).max())
+    err_1 = abs(got_1 - want_1) / abs(want_1)
+    log(f"10b card bf16 vs CPU bf16 at the final state: chains' log-joints rel {err_c:.3e}; chain 0 without a "
+        f"chain axis rel {err_1:.3e} ({got_1:.3f} vs {want_1:.3f})")
+    require(err_c <= 1e-5 and err_1 <= 1e-5, f"10b: card against CPU {err_c}, {err_1}")
+
+    # 10c: one batched sweep against C = 1 in turn, a chain axis of 1 each
+    # (the chain semantics): K4-chains only
+    state16 = stack_states(states)
+    sweep16 = make_sweep(pop, data, n_leapfrog=LEAPFROG_STEPS, fisher_params=fit)
+    before = dict(kernels.LAUNCHES)
+    _require_modes_agree(pop, sweep16, state16, "10c bf16: ")
+    modes = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    require(all(modes[k] == 0 for k in KERNELS if k not in ("fwd_chains_bf16", "vg_chains_bf16")),
+            f"10c: the chain semantics launched another kernel: {modes}")
+
+    # the bf16 batched sweep beside the float32 one, from the same params
+    state32 = init_mcmc_state(pop32, batched)
+    sweep32 = make_sweep(pop32, data32, n_leapfrog=LEAPFROG_STEPS, fisher_params=sl["params"])
+    gens = [torch.Generator(device=dev).manual_seed(SEED + 40 + c) for c in range(BF16_CHAINS)]
+    timed = []
+    for name, sweep, st in (("bf16", sweep16, state16), ("float32", sweep32, state32),
+                            ("float32", sweep32, state32), ("bf16", sweep16, state16)):
+        st = sweep(gens, st, False, 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st = sweep(gens, st, False, 1.0)
+        torch.cuda.synchronize()
+        timed.append(f"{name} {1e3 * (time.perf_counter() - t0) / 3:.3f}")
+    log(f"10b the 4-chain batched sweep, ms per sweep over 3 sweeps, in turns: {'; '.join(timed)} [{card}]")
+    log(f"phase 10b-c: {time.perf_counter() - t_phase:.2f} s; launches on its paths {path}")
+    require(all(path[k] == 0 for k in F32_KERNELS), f"phase 10 launched a float32 kernel: {path}")
+    require(all(path[k] > 0 for k in BF16_KERNELS), f"a K4 kernel of phase 10's path never launched: {path}")
+    return path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = setup()
@@ -1763,25 +2024,37 @@ def main() -> None:
     launches = _add(launches, acceptance_phase(dev, card))
     launches = _add(launches, variants_phase(dev, card, sl))
 
-    del sl
     torch.cuda.empty_cache()
     launches = _add(launches, long_recording_phase(dev, card))
     torch.cuda.empty_cache()
     launches = _add(launches, harness_phase(dev, card))
 
+    # phase 10: the bf16 design (K4) on phase 3's flagship
+    t0 = time.perf_counter()
+    kstats.update(check_bf16_kernels(dev, T, N, BF16_CHAINS, "10a flagship", card))
+    for c in (2, 3, 4):
+        T_c, N_c = ACCEPT_SHAPES[c]
+        check_bf16_kernels(dev, T_c, N_c, ACCEPT_SAMPLER_CHAINS[c], f"10a config {c}", card, one_chain=False)
+    log(f"phase 10a: {time.perf_counter() - t0:.2f} s")
+    launches = _add(launches, bf16_phase(sl, card))
+
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included [{card}]")
     require(all(launches[k] > 0 for k in KERNELS), f"a kernel was never launched on the main paths: {launches}")
-    src = os.path.relpath(SOURCE, REPO)
+    # the bf16 instances (K4) replace the same TPU kernels and chain rules on a bf16 X_f
     replaces = {"fwd": "theano_pyglm_tpu/ops/pallas_kernels.py:73",
                 "vg": "theano_pyglm_tpu/ops/pallas_kernels.py:100",
                 "fwd_chains": "theano_pyglm_tpu/ops/pallas_kernels.py:213",
                 "vg_chains": "theano_pyglm_tpu/ops/pallas_kernels.py:164"}
     names = {"fwd": "K1 fused_ll_fwd", "vg": "K2 fused_ll_vg",
-             "fwd_chains": "K3-fwd fused_ll_fwd_chains", "vg_chains": "K3-vg fused_ll_vg_chains"}
+             "fwd_chains": "K3-fwd fused_ll_fwd_chains", "vg_chains": "K3-vg fused_ll_vg_chains",
+             "fwd_bf16": "K4-fwd fused_ll_fwd_bf16", "vg_bf16": "K4-vg fused_ll_vg_bf16",
+             "fwd_chains_bf16": "K4-fwd-chains fused_ll_fwd_chains_bf16",
+             "vg_chains_bf16": "K4-vg-chains fused_ll_vg_chains_bf16"}
     # library_ms is null: no single PyTorch call computes the fused value or value+grad
     print(json.dumps({"kernels": [
-        {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], **kstats[k]}
+        {"name": names[k], "route": "cuda",
+         "source": os.path.relpath(SOURCE_BF16 if k in BF16_KERNELS else SOURCE, REPO),
+         "replaces": replaces[k.removesuffix("_bf16")], "launches": launches[k], **kstats[k]}
         for k in KERNELS
     ]}), flush=True)
     print(gpu_name_and_power(), flush=True)

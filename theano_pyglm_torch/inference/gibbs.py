@@ -26,8 +26,13 @@ twice, and the birth–death Newton fit differentiates the exact full-T ΔLL
 of the entry twice. The glm block has one Laplace-MH update per stimulus
 variant: ``update_glm_laplace`` (none, basis), ``update_glm_laplace_st``
 (spatiotemporal: two bilinear sub-blocks) and ``update_glm_laplace_shared``
-(shared: per-neuron [bias, gain], then the global filter). The bf16 design
-branch of ψ waits for the bf16 designs (ROADMAP.md, queue 2, K4).
+(shared: per-neuron [bias, gain], then the global filter).
+
+A bfloat16 spike design (``Population(design_dtype=torch.bfloat16)``) takes
+the JAX package's bf16 branches: ψ from w_eff rounded to bfloat16 against
+the widened design, the float32 mean term added, and the adjacency stages'
+ψ rows carried in bfloat16 (:func:`_psi_from_X`), widened where a product
+reads them.
 
 Chains: every stage also takes params with a leading chain axis (every leaf
 (C, ...)) and a list of C generators, one per chain, and updates all chains
@@ -56,6 +61,7 @@ from theano_pyglm_torch.ops.distributions import (
     sample_gamma,
     sample_gaussian,
 )
+from theano_pyglm_torch.utils.dtypes import bf16_rounded
 
 # Proposal-shaping time-subsample geometry of the collapsed (A, W) update.
 # Module-level so tests can shrink them and drive the subsample path on
@@ -92,9 +98,15 @@ __all__ = [
 
 
 def compute_psi(pop, params, data) -> torch.Tensor:
-    """Unit-coupling currents ψ (T, N_post, N_pre) (see module docstring)."""
+    """Unit-coupling currents ψ (T, N_post, N_pre) (see module docstring),
+    in the parameters' dtype also for a bfloat16 design (w_eff rounded to
+    bfloat16 for the product, as in JAX)."""
     w_eff = pop.impulse.effective(params)  # (N, N, B)
-    psi = torch.einsum("tmb,nmb->tnm", data["X_imp"], w_eff)
+    X = data["X_imp"]
+    if X.dtype == torch.bfloat16:
+        psi = torch.einsum("tmb,nmb->tnm", X.to(w_eff.dtype), bf16_rounded(w_eff))
+    else:
+        psi = torch.einsum("tmb,nmb->tnm", X, w_eff)
     mean = data.get("_X_imp_mean")
     if mean is not None:
         psi = psi + torch.einsum("mb,nmb->nm", mean, w_eff)[None]
@@ -109,11 +121,20 @@ def _psi_from_X(X, mean, w_eff_n) -> torch.Tensor:
     Entry-major: one entry's column of every row is a contiguous (R, T')
     block. (The JAX function returns one row as (T', N_pre).) ``mean`` is
     the optional mean-centering correction ``_X_imp_mean`` (N, B).
+
+    A bfloat16 X gives bfloat16 ψ, as in JAX: the widened design against
+    the rows' w_eff rounded to bfloat16, the mean term (unrounded weights)
+    added, then the sum rounded to bfloat16.
     """
     rows = w_eff_n.reshape(-1, *w_eff_n.shape[-2:])  # (R, M, B)
-    psi = torch.bmm(rows.transpose(0, 1), X.permute(1, 2, 0))  # (M, R, T')
+    bf16 = X.dtype == torch.bfloat16
+    if bf16:
+        X = X.to(rows.dtype)
+    psi = torch.bmm((bf16_rounded(rows) if bf16 else rows).transpose(0, 1), X.permute(1, 2, 0))  # (M, R, T')
     if mean is not None:
         psi = psi + (mean[None] * rows).sum(-1).T[:, :, None]
+    if bf16:
+        psi = psi.to(torch.bfloat16)
     return psi[:, 0] if w_eff_n.ndim == 2 else psi
 
 
@@ -237,8 +258,8 @@ def update_adjacency(generator, pop, params, data, row_batch=None, beta=1.0):
         return obs.log_likelihood(S_n, I_n, nlin, dt).sum(-1)
 
     def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, logit_n, u_n):
-        psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T)
-        I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n, A_n * W_n)
+        psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T); bfloat16 for a bfloat16 design
+        I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n.to(I_rest_n.dtype), A_n * W_n)
         cols = []
         for m in range(N):
             contrib = W_n[:, m, None] * psi_n[m]
@@ -342,17 +363,17 @@ def update_adjacency_collapsed(
     z = draw(generator, lambda g: torch.randn((N, N), generator=g, dtype=f, device=dev))
 
     def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, mu_n, sig_n, logit_n, ua_n, umix_n, uacc_n, z_n, *idx_n):
-        psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T)
-        I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n, A_n * W_n)
+        psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T); bfloat16 for a bfloat16 design
+        I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n.to(I_rest_n.dtype), A_n * W_n)
         if fast:
             if use_sub:
                 (idx_n,) = idx_n  # (R, T_sub) bins of each row's chain
                 psi_sub = psi_n.gather(-1, idx_n.expand(psi_n.shape[0], *idx_n.shape))
                 S_sub_n, I_rest_sub_n = S_n.gather(-1, idx_n), I_rest_n.gather(-1, idx_n)
-                I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub, A_n * W_n)
+                I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub.to(I_rest_n.dtype), A_n * W_n)
             else:
                 psi_sub, S_sub_n = psi_n, S_n
-            a_sub_all = torch.einsum("rt,mrt->rm", S_sub_n, psi_sub) * scale_sub  # Σ S·ψ
+            a_sub_all = torch.einsum("rt,mrt->rm", S_sub_n, psi_sub.to(S_sub_n.dtype)) * scale_sub  # Σ S·ψ
             # the carried current's likelihood scalars Σ S·clip(I_n), Σ e^{clip(I_n)}
             I_c = clip_exponent(I_n)
             sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from theano_pyglm_torch.ops.clipping import clip_exponent, exp_clipped
 from theano_pyglm_torch.ops.distributions import gaussian_logpdf, sample_gaussian
+from theano_pyglm_torch.utils.dtypes import bf16_rounded
 
 __all__ = [
     "CurrentComponent",
@@ -210,7 +211,8 @@ def make_impulse(spec: dict, N: int, B_imp: int) -> CurrentComponent:
         I_net[t, n] = Σ_pre G[n, pre] · (X_imp[t, pre, :] · w_eff[n, pre, :])
 
     where G = A∘W comes from the network component (the population supplies
-    it as ``data['_G']``) and X_imp (T, N, B) is the presynaptic design.
+    it as ``data['_G']``) and X_imp (T, N, B) is the presynaptic design. A
+    bfloat16 X_imp meets w_eff and G each rounded to bfloat16.
 
     'basis':      w_eff = w_ir, iid Gaussian prior.
     'normalized': w_eff = softmax(w_ir, axis=-1), a unit-sum filter.
@@ -242,11 +244,20 @@ def make_impulse(spec: dict, N: int, B_imp: int) -> CurrentComponent:
 
     def current(params, data):
         X = data["X_imp"]
-        U = combined_weights(effective(params), data["_G"])
-        I = X.reshape(X.shape[0], -1) @ U
+        w_eff, G = effective(params), data["_G"]
+        U = combined_weights(w_eff, G)
+        if X.dtype == torch.bfloat16:
+            # the JAX package's bf16 branch: w_eff and G rounded to bf16
+            # apart, their product (exact in float32) against the widened
+            # design, accumulated in the parameters' dtype
+            U_x = combined_weights(bf16_rounded(w_eff), bf16_rounded(G))
+            I = X.reshape(X.shape[0], -1).to(U.dtype) @ U_x
+        else:
+            I = X.reshape(X.shape[0], -1) @ U
         mean = data.get("_X_imp_mean")
         if mean is not None:
             # the centered-out column means re-enter as a constant current
+            # (unrounded weights, as in JAX)
             I = I + (mean.reshape(-1) @ U).unsqueeze(-2)
         return I
 

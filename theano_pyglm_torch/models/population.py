@@ -22,6 +22,16 @@ op runs the chain-batched kernel K3 once for all chains (once per group of
 ``kernels.chain_groups`` where K3 does not take them all; a chain alone:
 K1/K2), so X_f is read once per launch whatever C is.
 
+bf16 design: ``design_dtype=torch.bfloat16`` stores the spike design X_imp
+(and each streamed block's) in bfloat16 after centring, its column means
+in float32, as the JAX package's ``design_dtype=jnp.bfloat16`` does. The
+fused op then reads a bfloat16 X_f (K4 on the card) with the JAX op's two
+semantics: without a chain axis U stays float32 (I = f32(X)·U); with one
+(the sampler's batched state, a chain axis of 1 included) U and dI are
+rounded to bfloat16 for the products (ops/kernels.py). The plain
+per-neuron path (float64, ``use_fused=False``, other models) takes the
+coupling current's bfloat16 branch (models/components.py).
+
 Long recordings: with ``time_chunk`` the likelihood is a sum over time
 blocks of that many bins (the last one ragged). With
 ``prepare_data(materialize_design=False)`` the (T, N, B) spike design is
@@ -79,6 +89,7 @@ class Population:
         time_chunk: Optional[int] = None,
         device=None,
         dtype: Optional[torch.dtype] = None,
+        design_dtype: Optional[torch.dtype] = None,
     ):
         """``use_fused``: evaluate the exp-Poisson likelihood in float32
         through the fused op (the hand-written kernels on a CUDA device, their
@@ -86,7 +97,10 @@ class Population:
         likelihood in time blocks of this many bins (see the module note);
         with ``prepare_data(materialize_design=False)`` memory is bounded by
         the block instead of T·N·B. ``device`` defaults to the current CUDA
-        device; pass ``device="cpu"`` for the CPU."""
+        device; pass ``device="cpu"`` for the CPU. ``design_dtype``: the
+        dtype of the spike design X_imp (None: the population's dtype;
+        ``torch.bfloat16`` halves the bytes of every likelihood pass, with
+        the JAX package's rounding; see the module note)."""
         validate_spec(spec)
         self.spec = copy.deepcopy(spec)
         self.N = int(spec["N"])
@@ -96,6 +110,7 @@ class Population:
         # the card unless the caller asks for the CPU; no check, no fall-back
         self.device = torch.device(device if device is not None else "cuda")
         self.dtype = dtype if dtype is not None else default_float()
+        self.design_dtype = design_dtype
 
         # -- bases (numpy, built once)
         imp_spec = dict(spec.get("impulse", {"type": "basis"}))
@@ -174,8 +189,9 @@ class Population:
                 it needs ``time_chunk`` on the Population.
         Returns:
           data dict on the population's device and dtype with 'S' (T,N),
-          '_neg_log_S_factorial', 'X_imp' (T,N,B_imp) centered by column with
-          its means in '_X_imp_mean' (N,B_imp) and, if the model has a
+          '_neg_log_S_factorial', 'X_imp' (T,N,B_imp) centered by column (in
+          ``design_dtype`` when set) with its means in '_X_imp_mean' (N,B_imp)
+          and, if the model has a
           stimulus component, 'X_stim' (T, D·B_stim) or 'X_st' (T,D,B_stim).
         """
         S = self._tensor(S)
@@ -193,13 +209,17 @@ class Population:
             # This removes the dominant correlation between every coupling
             # weight and the bias, which conditions both L-BFGS and HMC.
             X_mean = X_imp.mean(0)  # (N_pre, B)
-            data["X_imp"] = X_imp - X_mean[None]
+            data["X_imp"] = self._design(X_imp - X_mean[None])
             data["_X_imp_mean"] = X_mean
         if self.basis_stim is not None:
             if stim is None:
                 raise ValueError("model has a stimulus component but no stim given")
             data.update(self._stim_design(stim, stim_dt, T))
         return data
+
+    def _design(self, X_imp) -> torch.Tensor:
+        """The spike design in ``design_dtype`` (rounded to nearest even)."""
+        return X_imp if self.design_dtype is None else X_imp.to(self.design_dtype)
 
     def _stim_design(self, stim, stim_dt, T) -> dict:
         stim = self._tensor(stim)
@@ -259,7 +279,7 @@ class Population:
         if "X_imp" not in data:
             lo = max(t0 - L, 0)
             halo = torch.cat([S.new_zeros((L - (t0 - lo), N)), S[lo:t1]])
-            d["X_imp"] = convolve_with_basis(halo, self._tensor(self.basis_imp))[L:]
+            d["X_imp"] = self._design(convolve_with_basis(halo, self._tensor(self.basis_imp))[L:])
         return d
 
     def log_likelihood_per_neuron(self, params, data) -> torch.Tensor:
@@ -296,7 +316,8 @@ class Population:
 
     def _fused_active(self, data) -> bool:
         """The fused path: exp-Poisson, float32, opted in. Float64 (CPU
-        verification) runs the plain per-neuron path."""
+        verification) runs the plain per-neuron path, with a bfloat16 design
+        too (the JAX package turns its Pallas path off under x64)."""
         return (
             self.use_fused
             and self.nlin.name == "exp"

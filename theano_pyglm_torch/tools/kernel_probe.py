@@ -79,7 +79,8 @@ def build(out_dir: str) -> dict:
     for name, on in VARIANTS.items():
         flags = [f"-DPROBE_{f}={int(f in on)}" for f in FLAGS]
         out = os.path.join(out_dir, f"{name}.so")
-        cmd = [cuda_loader._nvcc(), *cuda_loader.nvcc_flags(), *flags, "-o", out, path]
+        cmd = [cuda_loader._nvcc(), *cuda_loader.nvcc_flags(), *flags, "-I", str(cuda_loader.SOURCE.parent),
+               "-o", out, path]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
     libs = {}
     ref = cuda_loader.load_fused_ll()

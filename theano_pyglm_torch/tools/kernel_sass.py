@@ -2,9 +2,10 @@
 """The machine code of the fused Poisson-LL kernels of several checkouts,
 compared.
 
-Compiles each checkout's ``theano_pyglm_torch/csrc/fused_poisson_ll.cu`` to a
-cubin with this checkout's nvcc flags, and prints for each kernel (K1, K2,
-and K3-fwd / K3-vg where the checkout has them) its registers, stack and
+Compiles each checkout's ``theano_pyglm_torch/csrc/fused_poisson_ll.cu`` (and
+``fused_poisson_ll_bf16.cu`` where the checkout has it) to cubins with this
+checkout's nvcc flags, and prints for each kernel (K1, K2, K3-fwd / K3-vg and
+the four K4 where the checkout has them) its registers, stack and
 instruction count, and how many lines of its SASS differ from the first
 checkout's, once the addresses, the encodings and the kernel parameters'
 constant-bank offsets are masked (a new kernel parameter moves every later
@@ -27,9 +28,11 @@ sys.path.insert(0, REPO)
 
 from theano_pyglm_torch.ops import cuda_loader  # noqa: E402
 
-# fused_ll_tiles<kGrad> (one-chain template) or fused_ll_tiles<kGrad, kChains>;
-# a bool argument reads "true" or "(bool)1"
-_TEMPLATE = re.compile(r"fused_ll_tiles<([^,>]+)(?:, ?([^>]+))?>")
+# fused_ll_tiles<kGrad> (one-chain template) or fused_ll_tiles<kGrad, kChains>,
+# and the bf16 design's fused_ll_bf16_tiles<kGrad, kChains>; a bool argument
+# reads "true" or "(bool)1"
+_TEMPLATE = re.compile(r"fused_ll(_bf16)?_tiles<([^,>]+)(?:, ?([^>]+))?>")
+_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_bf16.cu")
 _MASKS = [
     (re.compile(r"/\*[0-9a-f]{4,}\*/"), ""),  # the instruction's address
     (re.compile(r"/\* 0x[0-9a-f]+ \*/"), ""),  # its encoding
@@ -41,7 +44,9 @@ def _kernel(demangled: str):
     m = _TEMPLATE.search(demangled)
     if m is None:
         return None
-    grad, chains = (m.group(i) in ("true", "(bool)1") for i in (1, 2))
+    grad, chains = (m.group(i) in ("true", "(bool)1") for i in (2, 3))
+    if m.group(1):
+        return f"K4-{'vg' if grad else 'fwd'}{'-chains' if chains else ''}"
     return ("K3-vg" if grad else "K3-fwd") if chains else ("K2" if grad else "K1")
 
 
@@ -60,10 +65,17 @@ def _tag(tree: str) -> str:
 
 
 def compile_tree(tree: str, out_dir: str) -> dict:
-    """{kernel: {"res": resource line, "sass": masked lines}} of one checkout."""
-    src = os.path.join(tree, "theano_pyglm_torch", "csrc", "fused_poisson_ll.cu")
+    """{kernel: {"res": resource line, "sass": masked lines}} of one checkout's sources."""
+    kernels = {}
+    for name in _SOURCES:
+        src = os.path.join(tree, "theano_pyglm_torch", "csrc", name)
+        if os.path.exists(src):
+            kernels.update(_compile(src, os.path.join(out_dir, f"{_tag(tree)}.{name[:-3]}.cubin")))
+    return kernels
+
+
+def _compile(src: str, cubin: str) -> dict:
     flags = " ".join(cuda_loader.nvcc_flags()).replace("-shared", "").replace("-Xcompiler -fPIC", "").split()
-    cubin = os.path.join(out_dir, _tag(tree) + ".cubin")
     proc = subprocess.run([cuda_loader._nvcc(), *flags, "-cubin", "-o", cubin, src], capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
