@@ -16,9 +16,12 @@ Phases, each of which raises on a mismatch or a non-finite value:
    (T=60,000, N·B=135, N=27), with a clipped case, bit-for-bit repeatability,
    one launch per call, and the median device time of 50 calls each, warm
    and with the 50 MB L2 flushed, beside the plain version's, the bound
-   (bytes read and written once over 3.35 TB/s, or float32 operations over
-   67 TFLOP/s, whichever is longer) and the roofline share of the cold time.
-   Then K3 (K3-fwd and K3-vg, the chain-batched pair) on the flagship's 4
+   (the least time the card could take: bytes read and written once over
+   3.35 TB/s, or the products as the card can do them at their accuracy,
+   float32-accurate ones as 3xTF32 at 495 TFLOP/s, whichever is longer; see
+   bound()) and the roofline share of the cold time. Then K3 (K3-fwd and
+   K3-vg, the chain-batched pair; K3-vg and K4-vg-chains are built from
+   csrc/fused_ll_vg_chains.cu) on the flagship's 4
    chains: against its plain version (with a clipped case) and against
    K1/K2 on each chain alone, bit for bit repeated, one launch per call,
    warm and cold times beside the plain version's and K1/K2's on the 4
@@ -85,7 +88,9 @@ Phases, each of which raises on a mismatch or a non-finite value:
    CPU (1e-5). 7e: K1/K2 against the plain version at the held-out shape
    (T=12,000), as in phase 2, then the predictive log-likelihood of 7a's 40
    draws on the last 20 % of a fresh simulation of 7a's generating
-   parameters: one K1 launch per draw, above a prior draw's. 7f: 7a's
+   parameters: blocks of 32 and 8 draws, each one evaluation with a chain
+   axis, so K3-fwd launches as chain_groups cuts each block (4 + 1 at
+   N=27), above a prior draw's. 7f: 7a's
    model, 2 chains x 30 sweeps checkpointed every 10, uninterrupted and
    stopped at 20 then resumed: the kept draws and final states equal bit
    for bit.
@@ -113,14 +118,16 @@ Phases, each of which raises on a mismatch or a non-finite value:
    training shape (T=48,000); scripts/fit_rgc.py on it (MAP, 40 + 20 sweeps, report); then
    cli generate, map and mcmc (40 + 20): every output written (the figure
    where matplotlib is installed), every likelihood evaluation through K1
-   or K2 and both launched.
+   or K2 (a block of predictive draws through K3-fwd, a launch per group
+   of chain_groups) and both launched.
 10. The bf16 spike design (Population(design_dtype=torch.bfloat16)), K4.
    10a: K4-fwd and K4-vg (no chain axis: U float32) and K4-fwd-chains and
    K4-vg-chains (4 chains: U and dI rounded to bf16) against their plain
    versions at the flagship shape, with a clipped case, bit-for-bit
    repeats, one launch per call, warm and cold median times of 50 calls
    beside the plain version's and beside K1/K2/K3 on the widened X_f, the
-   bound (bf16 X_f bytes; the chain kernels' bf16 products at 989 TFLOP/s)
+   bound (bf16 X_f bytes; bf16 × float32 products as 2 TF32 products, the
+   chain kernels' bf16 × bf16 products at 989 TFLOP/s)
    and share; the chain pair likewise at configs 2-4's shapes. 10b: phase
    3's spikes, stimulus and model with a bf16 design: prepare_data, smart
    init, MAP (K4-vg launches equal to the L-BFGS evaluations), then
@@ -186,7 +193,8 @@ from theano_pyglm_torch.inference.mcmc import whitening_factor  # noqa: E402
 from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  # noqa: E402
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
-from theano_pyglm_torch.ops.cuda_loader import SOURCE, SOURCE_BF16, build_all, load_fused_ll, load_fused_ll_bf16  # noqa: E402
+from theano_pyglm_torch.ops.cuda_loader import (  # noqa: E402
+    SOURCE, SOURCE_BF16, SOURCE_VG_CHAINS, build_all, load_fused_ll, load_fused_ll_bf16, load_fused_ll_vg_chains)
 from theano_pyglm_torch.parallel import gibbs_sample_chains  # noqa: E402
 from theano_pyglm_torch.scripts import acceptance, rgc_flagship  # noqa: E402
 from theano_pyglm_torch.utils.diagnostics import adjusted_rand_index  # noqa: E402
@@ -213,7 +221,7 @@ def gpu_name_and_power() -> str:
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak rates
-FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # TF32 on the tensor cores, dense
 BF16_FLOP_PER_S = 989e12  # bf16 × bf16 on the tensor cores, dense
 
 
@@ -246,10 +254,14 @@ def median_ms(fn, n: int = 50, warmup: int = 3, flush=None, device_only: bool = 
 
 def bound(k: str, ops, x_reads: int = 1) -> tuple:
     """(ms, resource): the least time the card could take for kernel k on
-    these operands: each input read once (at its element size: a bf16 X_f
-    is 2 bytes), each output written once, against the multiply-adds of the
-    product(s): float32 operations at FP32_FLOP_PER_S, the chain kernels'
-    bf16 × bf16 products of a bf16 X_f (K4-chains) at BF16_FLOP_PER_S.
+    these operands, the larger of two times. Bytes: each input read once
+    (at its element size: a bf16 X_f is 2 bytes), each output written once,
+    over HBM_BYTES_PER_S. Operations: the products' multiply-adds as the
+    card can do them at their accuracy: float32-accurate products (a float32
+    X_f: K1-K3) as 3xTF32 on the tensor cores, 3 × the operations at
+    TF32_FLOP_PER_S; bf16 × float32 products (K4-fwd, K4-vg: a bf16 X_f with
+    U and dI in float32) as 2 × the operations at TF32_FLOP_PER_S; bf16 ×
+    bf16 products (K4-chains: U and dI rounded) at BF16_FLOP_PER_S.
     ``x_reads``: count X_f that many times (the kernels read it once per
     column group). K3's operands carry C chains of U and I_rest: C times the
     products and outputs, one read of X_f and S."""
@@ -264,8 +276,13 @@ def bound(k: str, ops, x_reads: int = 1) -> tuple:
         flops *= 2  # X_fᵀ @ dI_rest
     else:
         nbytes += 4 * C
-    rate = BF16_FLOP_PER_S if "chains" in k and x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if x.dtype != torch.bfloat16:
+        t_ops = 3 * flops / TF32_FLOP_PER_S
+    elif "chains" in k:
+        t_ops = flops / BF16_FLOP_PER_S
+    else:
+        t_ops = 2 * flops / TF32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -304,6 +321,7 @@ def setup() -> str:
     built = build_all()  # one nvcc per source, started together
     load_fused_ll()
     load_fused_ll_bf16()
+    load_fused_ll_vg_chains()
     log(f"built {', '.join(os.path.relpath(p, REPO) for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for _, build_log in built.values():
@@ -1415,17 +1433,26 @@ def variants_hmc_ars(sl, card) -> dict:
 
 def variants_predictive(st, card) -> dict:
     """7e: the predictive log-likelihood of 7a's draws on the last 20 % of
-    a fresh simulation of 7a's generating parameters: one K1 launch per
-    draw, finite, above a prior draw's."""
+    a fresh simulation of 7a's generating parameters: each block of draws
+    one evaluation with a chain axis (the JAX package's lax.map(...,
+    batch_size)), so the K3-fwd launches (K1 for a group of one) that
+    chain_groups gives each block, the K draws each evaluated once; finite,
+    above a prior draw's."""
     pop, true = st["pop"], st["true"]
     _, S, stim = _simulated(pop, SEED + 74, T, "7e fresh simulation", true=true)
     T_tr = int(0.8 * T)
     data_ho = pop.prepare_data(S[T_tr:], stim=stim[T_tr:])
     draws = {k: v.reshape((-1,) + v.shape[2:]) for k, v in st["samples"].items()}
     K = len(draws["bias"])
+    blocks = []  # the chain axis of each evaluation
+    evaluate = pop.log_likelihood
+    pop.log_likelihood = lambda params, data: (blocks.append(len(params["bias"])), evaluate(params, data))[1]
     before = _counted(pop)
     t0 = time.perf_counter()
-    pll = float(predictive_log_likelihood(pop, draws, data_ho))
+    try:
+        pll = float(predictive_log_likelihood(pop, draws, data_ho))
+    finally:
+        del pop.log_likelihood
     t_pll = time.perf_counter() - t0
     launches, ll_evals = _since(pop, before)
     with torch.no_grad():
@@ -1433,8 +1460,11 @@ def variants_predictive(st, card) -> dict:
         at_truth = float(pop.log_likelihood(true, data_ho))
     log(f"7e predictive log-likelihood of {K} draws on {T - T_tr} held-out bins: {pll:.3f} in {t_pll:.3f} s "
         f"(a prior draw {prior:.3f}, the truth {at_truth:.3f}); launches {launches} [{card}]")
-    require(launches == launches_of(fwd=K) and ll_evals == {"grad": 0, "value": K},
-            f"7e: launches {launches}, evaluations {ll_evals}, want one K1 per draw ({K})")
+    NB = pop.N * pop.B_imp
+    groups = [c for b in blocks for c in kernels.chain_groups(NB, pop.N, b)]
+    want = launches_of(fwd_chains=sum(c > 1 for c in groups), fwd=sum(c == 1 for c in groups))
+    require(sum(blocks) == K and launches == want and ll_evals == {"grad": 0, "value": len(blocks)},
+            f"7e: launches {launches}, evaluations {ll_evals} of blocks {blocks}, want {want} for {K} draws")
     require(math.isfinite(pll) and pll > prior, f"7e: predictive {pll} not above a prior draw's {prior}")
     return (launches,)
 
@@ -1674,14 +1704,19 @@ HARNESS_WARMUP, HARNESS_SAMPLES = 40, 20  # 40: the least warmup with adaptation
 
 class _CountEvaluations:
     """Counts every Population's log-likelihood evaluations while active
-    (the harness builds its own populations)."""
+    (the harness builds its own populations), and the launches each should
+    make: one, or with a chain axis (the predictive log-likelihood's blocks
+    of draws) one per group of chain_groups."""
 
     def __enter__(self):
-        self.evals = 0
+        self.evals = self.launches = 0
         self._orig = orig = Population.log_likelihood
 
         def counted(pop, params, data):
             self.evals += 1
+            bias = params["bias"]
+            C = bias.shape[0] if bias.ndim > 1 else None
+            self.launches += 1 if C is None else len(kernels.chain_groups(pop.N * pop.B_imp, pop.N, C))
             return orig(pop, params, data)
 
         Population.log_likelihood = counted
@@ -1693,7 +1728,8 @@ class _CountEvaluations:
 
 def _harness_path(label, run) -> dict:
     """One harness path with the launch counts set to 0 just before it: every
-    likelihood evaluation must have launched K1 or K2, and both ran."""
+    likelihood evaluation must have launched K1 or K2 (K3-fwd for each group
+    of a block of predictive draws), and K1 and K2 both ran."""
     zero_launches()
     t0 = time.perf_counter()
     with _CountEvaluations() as counted:
@@ -1702,8 +1738,8 @@ def _harness_path(label, run) -> dict:
     got = dict(kernels.LAUNCHES)
     log(f"{label}: {time.perf_counter() - t0:.2f} s; likelihood evaluations {counted.evals}, launches {got}")
     require(got["fwd"] > 0 and got["vg"] > 0, f"{label}: a kernel never launched: {got}")
-    require(sum(got.values()) == counted.evals,
-            f"{label}: {counted.evals} likelihood evaluations against launches {got}")
+    require(sum(got.values()) == counted.launches,
+            f"{label}: {counted.evals} likelihood evaluations ({counted.launches} launches) against launches {got}")
     return got
 
 
@@ -2050,10 +2086,12 @@ def main() -> None:
              "fwd_bf16": "K4-fwd fused_ll_fwd_bf16", "vg_bf16": "K4-vg fused_ll_vg_bf16",
              "fwd_chains_bf16": "K4-fwd-chains fused_ll_fwd_chains_bf16",
              "vg_chains_bf16": "K4-vg-chains fused_ll_vg_chains_bf16"}
+    sources = {k: SOURCE_VG_CHAINS if k.startswith("vg_chains") else SOURCE_BF16 if k in BF16_KERNELS else SOURCE
+               for k in KERNELS}
     # library_ms is null: no single PyTorch call computes the fused value or value+grad
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda",
-         "source": os.path.relpath(SOURCE_BF16 if k in BF16_KERNELS else SOURCE, REPO),
+         "source": os.path.relpath(sources[k], REPO),
          "replaces": replaces[k.removesuffix("_bf16")], "launches": launches[k], **kstats[k]}
         for k in KERNELS
     ]}), flush=True)

@@ -199,14 +199,15 @@ def test_chains_wrappers_reject_bad_operands():
 
 def test_chains_launch_plan():
     """The flagship at C = 4: U (135, 108) in one group, tiles of 60 bins,
-    dU's 240 micro-tiles in one grid_y slice, within 227 KB. Configs 3 and 4
-    at C = 4 plan too. An uncovered shape raises a ValueError that names it:
-    C·N too wide for one group beside a 4-bin tile, or C past MAX_CHAINS."""
+    K3-vg's dU in 126 mma tiles in one grid_y slice, within 227 KB. Configs
+    3 and 4 at C = 4 plan too. An uncovered shape raises a ValueError that
+    names it: C·N too wide for one group beside a 4-bin tile, or C past
+    MAX_CHAINS."""
     for grad in (False, True):
         plan = kernels.launch_plan(60_000, 135, 27, H100_SMS, grad, chains=4)
         assert (plan.groups, plan.grid_y, plan.tile_t, plan.grid_x) == (1, 1, 60, H100_SMS)
         assert plan.smem_bytes <= kernels.SMEM_LIMIT
-    assert kernels.du_tiles(135, 27, chains=4) == 240
+    assert kernels.mma_tiles(135, 27, chains=4) == 126
     for T, NB, N in ((30_000, 50, 10), (60_000, 80, 16), (240_000, 50, 10)):
         plan = kernels.launch_plan(T, NB, N, H100_SMS, True, chains=4)
         assert plan.groups == 1 and plan.grid_y == 1 and plan.smem_bytes <= kernels.SMEM_LIMIT
@@ -248,6 +249,113 @@ def test_chain_groups():
     assert kernels.launch_plan(1000, 445, 89, H100_SMS, True, chains=1).groups == 2
     with pytest.raises(ValueError):
         kernels.chain_groups(135, 27, 0)
+
+
+# the shapes of every chain-batched value-and-gradient call: the flagship,
+# configs 2-4 and N = 60 (NB = 5N)
+VG_SHAPES = [(135, 27), (50, 10), (80, 16), (300, 60)]
+
+
+@pytest.mark.parametrize("NB,N", VG_SHAPES)
+@pytest.mark.parametrize("C", range(1, 9))
+def test_vg_chains_items_own_each_du_tile_once(NB, N, C):
+    """The mirror of K3-vg's and K4-vg-chains' dU work: for every group of
+    chain_groups (K3-vg takes 2 or more chains, K4-vg-chains any), each
+    (m-tile, n-tile) of dU (NB × C·N) is owned exactly once in every
+    k-slice; a warp's run is m-major and contiguous, at most WARP_TILES
+    items, so it covers at most ceil(items / n-tiles) + 1 m-tiles and the
+    kernel's A fragment of X_fᵀ serves every n-tile of its m-tile in a
+    group; the k-slices times the item-warps are the block's 8 warps."""
+    for x_bytes in (4, 2):
+        for c in set(kernels.chain_groups(NB, N, C)):
+            if x_bytes == 4 and c == 1:
+                continue  # K1/K2's call
+            plan = kernels.launch_plan(60_000, NB, N, H100_SMS, True, chains=c, x_bytes=x_bytes)
+            MT, NT = -(-NB // 16), -(-(c * N) // 8)
+            runs = kernels.vg_chains_items(NB, N, c, plan.grid_y)
+            ks = kernels.vg_chains_k_slices(NB, N, c, plan.grid_y)
+            assert len(runs) == plan.grid_y * kernels.WARPS and kernels.WARPS % ks == 0
+            assert sorted({k for k, _ in runs}) == list(range(ks))
+            for k in range(ks):
+                owned = [item for kk, run in runs if kk == k for item in run]
+                assert sorted(owned) == [(m, n) for m in range(MT) for n in range(NT)], (c, k)
+            for _, run in runs:
+                assert len(run) <= kernels.WARP_TILES
+                flat = [m * NT + n for m, n in run]
+                assert flat == list(range(flat[0], flat[0] + len(flat))) if run else True
+                if run:
+                    assert len({m for m, _ in run}) <= -(-len(run) // NT) + 1
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_vg_chains_plans_and_shared_memory(bf16):
+    """K3-vg's and K4-vg-chains' plans at every path's shape (the flagship
+    at C = 4 and 7f's C = 2, configs 2-4, N = 60) and every group that
+    chain_groups gives at NB = 5N up to N = 64: one column group, the tile
+    a multiple of 4 (bf16: 8) and at most 16 bins a unit of 8 n-tiles per
+    warp allows, the shared memory the source's layout (the mirror) within
+    SMEM_LIMIT; and the chain kernels take every group K3 took before (the
+    old layout at a 4-bin tile fits wherever the new one is asked to)."""
+    x_bytes = 2 if bf16 else 4
+    shapes = [(60_000, 135, 27, 4), (60_000, 135, 27, 2), (240_000, 50, 10, 2), (30_000, 50, 10, 4),
+              (60_000, 80, 16, 4), (30_000, 300, 60, 2)]
+    shapes += [(1000, 5 * n, n, c) for n in range(1, 65) for C in (2, 4, 8)
+               for c in set(kernels.chain_groups(5 * n, n, C)) if c > 1 or bf16]
+    for T, NB, N, C in shapes:
+        plan = kernels.launch_plan(T, NB, N, H100_SMS, True, chains=C, x_bytes=x_bytes)
+        assert plan.groups == 1 and plan.group_cols == N
+        assert plan.tile_t % (8 if bf16 else 4) == 0 and plan.tile_t <= kernels._unit_rows_cap(N, C)
+        assert plan.smem_bytes == kernels._smem_bytes_vg_chains(NB, N, C, plan.tile_t, bf16)
+        assert plan.smem_bytes <= kernels.SMEM_LIMIT
+        assert plan.grid_y == -(-kernels.mma_tiles(NB, N, C) // (kernels.WARPS * kernels.WARP_TILES))
+    flag = kernels.launch_plan(60_000, 135, 27, H100_SMS, True, chains=4, x_bytes=x_bytes)
+    assert (flag.tile_t, flag.grid_x, flag.grid_y) == ((64, H100_SMS, 1) if bf16 else (60, H100_SMS, 1))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as the kernel rounds it: add half an ulp of the
+    10-bit mantissa and clear the 13 bits below it (bit masking)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_3xtf32_du_emulation_meets_float64():
+    """K3-vg's dU = X_fᵀ·dI in its arithmetic, emulated: X_f and dI split
+    into TF32 big and small parts by bit masking, each 8-bin k-step's
+    products a_small·b_big, a_big·b_small, a_big·b_big added in turn into a
+    float32 sum per 64-bin tile (each product step exact, then rounded),
+    the tiles' sums into the block's in float32, the blocks' in order. At
+    the flagship's widths (NB = 135, 4 chains of 27) on 1,536 bins over 3
+    blocks: within 1e-6 of float64 (rel-L2), a tenth of chip_smoke.py's
+    1e-5; the unsplit TF32 product misses 1e-5."""
+    r = np.random.RandomState(0)
+    T, NB, CN = 1536, 135, 108
+    x = torch.as_tensor(0.1 * r.randn(T, NB), dtype=torch.float32)
+    d = torch.as_tensor(r.poisson(0.02, (T, CN)) - 0.05 * np.exp(r.randn(T, CN) - 3.0), dtype=torch.float32)
+    want = x.double().T @ d.double()
+
+    def split(a):
+        big = _tf32(a)
+        return big.double(), _tf32(a - big).double()
+
+    xb, xs = split(x)
+    db, ds = split(d)
+    blocks = []
+    for b0 in range(0, T, 512):
+        acc = torch.zeros(NB, CN)
+        for t0 in range(b0, b0 + 512, 64):
+            tile = torch.zeros(NB, CN)
+            for k in range(t0, t0 + 64, 8):
+                ks = slice(k, k + 8)
+                for a, bb in ((xs, db), (xb, ds), (xb, db)):
+                    tile = (tile.double() + a[ks].T @ bb[ks]).float()
+            acc = acc + tile
+        blocks.append(acc)
+    got = sum(blocks[1:], blocks[0]).double()
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert rel <= 1e-6, rel
+    plain = (xb.T @ db).float().double()
+    assert float(torch.linalg.norm(plain - want) / torch.linalg.norm(want)) > 1e-5
 
 
 @pytest.mark.parametrize("NB,N,C", [(300, 60, 4), (15, 3, 9), (500, 100, 3), (135, 27, 1)])
@@ -513,6 +621,39 @@ def test_chain_groups_on_card(cuda, T, NB, N, C):
     torch.testing.assert_close(ll.detach(), ll_r, rtol=1e-5, atol=0.0)
     want = w[:, None, None] * du_r
     assert float(torch.linalg.norm(u.grad - want) / torch.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize(
+    "T,NB,N,C",
+    [
+        (60_000, 135, 27, 4),  # the flagship's 4 chains
+        (240_000, 50, 10, 2),  # config 2: 12 dU tiles, all 8 warps in k-slices
+        (30_000, 300, 60, 4),  # N = 60: two groups of 2 chains, dU over 3 grid_y slices
+    ],
+)
+def test_vg_chains_kernels_match_reference_on_card(cuda, T, NB, N, C, bf16):
+    """K3-vg (float32 X_f) and K4-vg-chains (bf16 X_f) of
+    csrc/fused_ll_vg_chains.cu against the plain version: each value 1e-5
+    relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 / atol=1e-6, bit for
+    bit repeated, one launch per group of chain_groups."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, u, ir, s = _torch(*_inputs(T, NB, N, C, i_shift=-3.0, clip_bins=100), device=cuda)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    key = "vg_chains_bf16" if bf16 else "vg_chains"
+    groups = kernels.chain_groups(NB, N, C)
+    before = kernels.LAUNCHES[key]
+    ll, du, dir_ = fused_ll_value_and_grad_chains(x, u, ir, s, DT)
+    again = fused_ll_value_and_grad_chains(x, u, ir, s, DT)
+    ll_r, du_r, dir_r = fused_poisson_ll_chains_reference(x, u, ir, s, DT)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] - before == 2 * sum(1 for c in groups if bf16 or c > 1)
+    torch.testing.assert_close(ll, ll_r, rtol=1e-5, atol=0.0)
+    assert float(torch.linalg.norm(du - du_r) / torch.linalg.norm(du_r)) <= 1e-5
+    torch.testing.assert_close(dir_, dir_r, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip((ll, du, dir_), again))
 
 
 @pytest.mark.cuda

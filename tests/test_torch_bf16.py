@@ -400,6 +400,32 @@ def test_batched_log_joint_matches_jax_vmap(f32_jax):
         assert _rel(g_t[k], g_j[k]) <= 1e-3, k
 
 
+@pytest.mark.parametrize("batch", [32, 3, 1])
+def test_bf16_predictive_log_likelihood_takes_the_chain_semantics(f32_jax, batch):
+    """The held-out predictive log-likelihood of 7 draws with a bf16
+    design against JAX's predictive_log_likelihood at the same batch: JAX
+    vmaps every block of draws (lax.map with batch_size, the remainder
+    included), so its fused op takes the chain rules (U rounded to bf16).
+    The port, each block one evaluation with a chain axis, lies within a
+    tenth of the gap between the two semantics (that gap: each draw
+    evaluated without a chain axis, U in float32), so evaluating draw by
+    draw fails it; and within 1e-6 relative."""
+    import math
+
+    from theano_pyglm_torch.inference import predictive as pred_t
+    from theano_pyglm_tpu.inference import predictive as pred_j
+
+    pop_j, pop_t, _, p_t, d_j, d_t = _pair(chains=7)
+    stack = {k: v.numpy() for k, v in p_t.items()}
+    want = float(pred_j.predictive_log_likelihood(pop_j, stack, d_j, batch=batch))
+    with torch.no_grad():
+        one = torch.stack([pop_t.log_likelihood({k: v[i] for k, v in p_t.items()}, d_t) for i in range(7)])
+    gap = abs(float(torch.logsumexp(one, 0)) - math.log(7) - want)
+    got = float(pred_t.predictive_log_likelihood(pop_t, stack, d_t, batch=batch))
+    assert gap > 0 and abs(got - want) < gap / 10
+    assert abs(got - want) <= 1e-6 * abs(want)
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 def test_time_chunked_log_joint_matches_jax(f32_jax, streamed):
     """Blocks of 500 bins over T=1200 (the last ragged). The port's fused

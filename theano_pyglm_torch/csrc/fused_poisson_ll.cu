@@ -5,10 +5,11 @@
 // Replaces the Pallas TPU kernels of theano_pyglm_tpu/ops/pallas_kernels.py:
 //   K1  _fwd_kernel (:73, value only)          -> fused_ll_fwd
 //   K2  _vg_kernel  (:100, one-pass value+grad) -> fused_ll_vg
-// and the chain-batched rules that its custom_vmap reaches under a vmap over
-// chains (plain XLA there, not pallas_calls):
-//   K3  _ll_chains_xla (:213, value per chain)  -> fused_ll_fwd_chains
-//       _vg_chains_xla (:164, value+grad)       -> fused_ll_vg_chains
+// and the chain-batched rule that its custom_vmap reaches under a vmap over
+// chains for a value (plain XLA there, not a pallas_call):
+//   K3-fwd  _ll_chains_xla (:213, value per chain)  -> fused_ll_fwd_chains
+// (the value-and-gradient rule _vg_chains_xla, K3-vg, is in
+// fused_ll_vg_chains.cu).
 //
 //   I_raw = I_rest + X_f @ U        X_f (T, NB), U (NB, N), I_rest and S (T, N)
 //   I     = clip(I_raw, ±EXP_CLIP)
@@ -104,25 +105,23 @@
 // forward units for 8 warps, and K2's two dU slices each redo them
 // (without the forward, K2 takes 5.0 of its 14.8 ms at T=600,000).
 //
-// K3, the chain-batched pair: C chains of U (C, NB, N) and I_rest (C, T, N)
-// against one X_f (T, NB) and one S (T, N), giving the C values, dU
-// (C, NB, N) and dI_rest (C, T, N). The chain axis is a column axis of the
+// K3-fwd, the chain-batched value: C chains of U (C, NB, N) and I_rest
+// (C, T, N) against one X_f (T, NB) and one S (T, N), giving the C values.
+// The chain axis is a column axis of the
 // same design: column c·N + n of the product reads U[c, :, n], I_rest[c, :, n]
 // and S[:, n], so U sits in shared memory as (NB, C·N), and a tile's X_f and
 // S are copied once and feed every chain (the shared read is the point: C
-// calls of K2 read X_f C times). A stage holds C I_rest spans, one per chain,
+// calls of K1 read X_f C times). A stage holds C I_rest spans, one per chain,
 // each one TMA bulk copy, and one S span. A forward unit's 32 columns may
 // cross chains, so a thread keeps one compensated value per chain (at most
 // kMaxChains) and the block joins them per chain, in a fixed order, into C
-// values: no atomics, bit for bit. dU micro-tiles never cross a chain (a
-// chain's N columns in ceil(N / kMtN) of them). At the flagship, C = 4:
-// U is 135 × 108 (65 KB of shared memory), a tile 60 bins, dU 240
-// micro-tiles (grid_y = 1). K3 takes one column group: the wrapper cuts the
-// chains of a call whose C·N columns do not fit beside a 4-bin tile into
-// groups that do, one launch each (ops/kernels.py chain_groups). Bounds at
-// the flagship, C = 4: K3-vg does 3.50 GFLOP (52 us at 67 TFLOP/s) against
-// 90.7 MB (27 us at 3.35 TB/s); K3-fwd 1.75 GFLOP (26 us) against 64.8 MB
-// (19 us): the operations bound both.
+// values: no atomics, bit for bit. At the flagship, C = 4: U is 135 × 108
+// (65 KB of shared memory), a tile 60 bins. K3 takes one column group: the
+// wrapper cuts the chains of a call whose C·N columns do not fit beside a
+// 4-bin tile into groups that do, one launch each (ops/kernels.py
+// chain_groups). Bound at the flagship, C = 4: 64.8 MB (19 us at 3.35 TB/s)
+// against 1.75 GFLOP, 5.3 as 3xTF32 on the tensor cores (11 us at
+// 495 TFLOP/s): the bytes.
 
 #include "fused_ll_common.cuh"
 
@@ -143,8 +142,8 @@ constexpr int kMaxChains = 8;  // K3's chains, at most (ops/kernels.py MAX_CHAIN
 //   U[:, group]     (ceil8(NB) × BS, BS = b_stride(C·W), zero-padded; K3:
 //                   chain c's columns at c·N)
 //   stage 0, 1      X_f (RT × NB, RT = ceil16(tile_t): the tile's rows as
-//                   they lie in memory), then C I_rest spans (NS each; K2/K3
-//                   turn them into dI), then S (NS), each of W columns with
+//                   they lie in memory), then C I_rest spans (NS each; K2
+//                   turns its one into dI), then S (NS), each of W columns with
 //                   rows packed
 //   scratch         (kScratch)
 // Reads past a row's NB columns land in the next row (or, past the last, in
@@ -168,9 +167,8 @@ __device__ __forceinline__ uint32_t bulk_bytes(const float* src, int n) {
 
 // The grid is (grid_x, grid_y · G): blockIdx.y = group · grid_y + dU slice.
 // part row b (one per blockIdx.x): K1 [ll of each group, pad]; K2 [dU (NB·N
-// row-major), ll of each group, pad]; K3 (kChains: C chains, G = 1, W = N)
-// [dU (C·NB·N, chain-major), ll of each chain, pad] (K3-fwd: no dU). bar: 2
-// words, zeroed before the first call.
+// row-major), ll of each group, pad]; K3-fwd (kChains: C chains, G = 1,
+// W = N) [ll of each chain, pad]. bar: 2 words, zeroed before the first call.
 template <bool kGrad, bool kChains>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
@@ -297,17 +295,15 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
     issue(blockIdx.x, 0);
     cp_async_commit();
 
-    // K2's and K3's dU: kMtM × kMtN micro-tiles in registers for the whole
-    // kernel, float32 FMA. A micro-tile holds rows mg, mg + MG, ... of dU (so
-    // that a warp's X_f reads fall in consecutive banks) and columns n0d,
-    // n0d + 1, ... of one chain (K3: a chain's N columns in ngc micro-tile
-    // columns). n_slices = THREADS / (this y-slice's micro-tiles) threads, at
+    // K2's dU: kMtM × kMtN micro-tiles in registers for the whole kernel,
+    // float32 FMA. A micro-tile holds rows mg, mg + MG, ... of dU (so that a
+    // warp's X_f reads fall in consecutive banks) and columns n0d, n0d + 1,
+    // ... of the group. n_slices = THREADS / (this y-slice's micro-tiles) threads, at
     // most kMaxSlices, share one micro-tile, each taking every n_slices-th
     // bin of a tile; their sums are joined once, at the end, in a fixed
     // order. (The cap bounds the join: uncapped, one micro-tile at NB·N = 5
     // took 256 slices, summed by one thread.)
-    const int ngc = ((kChains ? N : nc) + kMtN - 1) / kMtN;  // micro-tile columns of a chain
-    const int ngd = nch * ngc, MG = (NB + kMtM - 1) / kMtM;
+    const int ngd = (nc + kMtN - 1) / kMtN, MG = (NB + kMtM - 1) / kMtM;
     const int y_items = kGrad ? min(kThreads, MG * ngd - ys * kThreads) : 0;
     const int n_slices = y_items > 0 ? min(kThreads / y_items, kMaxSlices) : 0;
     const int slice = y_items > 0 ? tid / y_items : 0;
@@ -315,8 +311,7 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
     const bool owns_du = slice < n_slices;
     const int item = ys * kThreads + item_l;
     const int mg = owns_du ? item / ngd : 0;
-    const int chd = kChains && owns_du ? (item % ngd) / ngc : 0;  // the micro-tile's chain (K3)
-    const int n0d = owns_du ? (item % ngd - chd * ngc) * kMtN : 0;
+    const int n0d = owns_du ? (item % ngd) * kMtN : 0;
     float du[kMtM][kMtN];
 #pragma unroll
     for (int i = 0; i < kMtM; ++i)
@@ -342,7 +337,7 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
         const int t0 = tile * tile_t;
         const int rows = min(tile_t, T - t0);
         const float* sx = s_stage + (size_t)(k & 1) * SW;
-        float* sir = s_stage + (size_t)(k & 1) * SW + RT * NB;  // I_rest, then (K2/K3) dI in place
+        float* sir = s_stage + (size_t)(k & 1) * SW + RT * NB;  // I_rest, then (K2) dI in place
         const float* ssp = sir + nch * NS;
 
         // forward: unit = (16 bins, 4 n-tiles of 8 columns)
@@ -415,14 +410,7 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
 
         if (kGrad) {
             __syncthreads();  // the tile's dI is in shared memory
-            if (lead_y && whole) {
-                if constexpr (kChains) {
-                    for (int ch = 0; ch < C; ++ch)
-                        copy_out(d_irest + ((size_t)ch * T + t0) * N, sir + ch * NS, rows * N);
-                } else {
-                    copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
-                }
-            }
+            if (lead_y && whole) copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
             if (lead_y && !whole)
                 for (int i = tid; i < rows * nc; i += kThreads) {
                     const int r = i / nc;
@@ -430,10 +418,10 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
                 }
             if (owns_du) {
                 // X_f and dI rows lie NB and rs apart, so each operand is a
-                // scalar read; rows past NB or columns past the chain's (or
-                // group's) last read the next row and land in discarded sums
+                // scalar read; rows past NB or columns past the group's last
+                // read the next row and land in discarded sums
                 const float* xm = sx + mg;
-                const float* dp = sir + chd * NS + n0d;
+                const float* dp = sir + n0d;
 #pragma unroll 2
                 for (int r = slice; r < rows; r += n_slices) {
                     float xv[kMtM], dv[kMtN];
@@ -451,7 +439,7 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
         __syncthreads();  // readers of this stage are done before it is refilled
     }
 
-    // -- this block's part of its partial row, width ceil4(NB·C·N + V) with
+    // -- this block's part of its partial row, width ceil4(NB·N + V) with
     // dU, else ceil4(V), for V values: one per group (K1/K2) or per chain (K3)
     const int n_vals = kChains ? nch : G;
     const int ll_off = kGrad ? NB * CN : 0, width = ll_off + n_vals;
@@ -473,19 +461,12 @@ fused_ll_tiles(const float* __restrict__ x_f, const float* __restrict__ u,
                     for (int j = 0; j < kMtN; ++j)
                         du[i][j] += s_join[((sl - 1) * y_items + item_l) * kMtN + j];
         }
-        const int ncol = kChains ? N : nc;  // columns of the micro-tile's chain (or group)
         if (slice == 0 && owns_du)
 #pragma unroll
             for (int i = 0; i < kMtM; ++i)
 #pragma unroll
                 for (int j = 0; j < kMtN; ++j)
-                    if (mg + i * MG < NB && n0d + j < ncol) {
-                        const int m = mg + i * MG;
-                        if (kChains)
-                            row[((size_t)chd * NB + m) * N + n0d + j] = du[i][j];
-                        else
-                            row[m * N + c0 + n0d + j] = du[i][j];
-                    }
+                    if (mg + i * MG < NB && n0d + j < nc) row[(mg + i * MG) * N + c0 + n0d + j] = du[i][j];
     }
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
@@ -580,19 +561,6 @@ extern "C" int fused_ll_fwd_chains(const float* x_f, const float* u, const float
     return (int)launch<false, true>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, C, N,
                                     tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
                                     (cudaStream_t)stream);
-}
-
-// K3-vg. out[0 : C·NB·N] = dU ((C, NB, N) row-major), out[C·NB·N + c] = chain
-// c's ll; d_irest (C, T, N). grid_y: dU slices. part: (grid_x, ceil4(C·NB·N +
-// C)) scratch, out: ceil4(C·NB·N + C) floats; bar as K1's.
-extern "C" int fused_ll_vg_chains(const float* x_f, const float* u, const float* i_rest,
-                                  const float* s, float* d_irest, float* part, float* out,
-                                  unsigned* bar, int T, int NB, int N, int C, int tile_t,
-                                  int grid_x, int grid_y, int smem_bytes, int device, float dt,
-                                  float log_dt, void* stream) {
-    return (int)launch<true, true>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, C, N,
-                                   tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
-                                   (cudaStream_t)stream);
 }
 
 extern "C" const char* fused_ll_error_string(int err) {

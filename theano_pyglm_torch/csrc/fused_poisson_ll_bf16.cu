@@ -10,7 +10,8 @@
 //   K4-vg         _vg_kernel (:100) / _vg_call's pallas_call (:138)       -> fused_ll_vg_bf16
 // and the chain rules of its custom_vmap (plain XLA there):
 //   K4-fwd-chains _ll_chains_xla (:213), U rounded to bf16 (:216)         -> fused_ll_fwd_chains_bf16
-//   K4-vg-chains  _vg_chains_xla (:164), U (:171) and dI (:179) rounded    -> fused_ll_vg_chains_bf16
+// (K4-vg-chains, the chain rule _vg_chains_xla (:164) with U (:171) and dI
+// (:179) rounded, is in fused_ll_vg_chains.cu).
 //
 // The two semantics of the JAX op on a bf16 design:
 //   one chain:  I = I_rest + f32(X_f)·U,        dU = f32(X_f)ᵀ·dI
@@ -25,8 +26,8 @@
 // 29.2 MB (X_f 16.2, I_rest and S 6.5 each) in 8.7 us against 0.44 GFLOP in
 // 6.5 us: bytes. K4-vg adds dI_rest: 35.6 MB in 10.6 us against 0.87 GFLOP
 // in 13.1 us: the float32 operations. On 4 chains K4-fwd-chains moves
-// 48.6 MB in 14.5 us and K4-vg-chains 74.5 MB in 22.2 us; their 1.75 and
-// 3.5 GFLOP of bf16 products take under 4 us on the tensor cores: bytes.
+// 48.6 MB in 14.5 us; its 1.75 GFLOP of bf16 products take under 2 us on the
+// tensor cores: bytes.
 //
 // The design is K1/K2/K3's (csrc/fused_poisson_ll.cu, whose template this
 // file leaves as it is; the helpers both use are in fused_ll_common.cuh):
@@ -58,17 +59,10 @@
 //   columns per k_stride words (4 more than a multiple of 8, so a warp's
 //   B-fragment reads hit 32 distinct banks). The forward is
 //   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: one product per k16 step
-//   and n-tile, exact products accumulated in float32. The epilogue writes
-//   dI in float32 in place of the tile's I_rest (copied out as dI_rest) and a
-//   bf16 copy of it, transposed as the dU product's B fragments want it
-//   (bins of a column paired in a word, 0 past the tile's rows and the last
-//   column). dU = X_fᵀ·bf16(dI) is then on the tensor cores as well: a
-//   warp holds up to kWarpTiles 16 × 8 accumulator tiles of dU (NB × C·N)
-//   for the whole kernel; past 8 · kWarpTiles tiles grid_y slices split
-//   them, each slice recomputing the tile's currents. X_f's A fragments are
-//   built from two 16-bit reads each (an X_f row of odd NB starts on an odd
-//   value). A group of one chain is this kernel too, so a chain axis of 1
-//   keeps the chain semantics.
+//   and n-tile, exact products accumulated in float32. X_f's A fragments
+//   are built from two 16-bit reads each (an X_f row of odd NB starts on an
+//   odd value). A group of one chain is this kernel too, so a chain axis of
+//   1 keeps the chain semantics.
 
 #include <cuda_bf16.h>
 
@@ -84,7 +78,6 @@ constexpr int kScratch = kThreads * 8;  // words for joining partial sums (≥ k
 constexpr int kMtM = 9, kMtN = 7;  // K4-vg's dU micro-tile (ops/kernels.py DU_TILE)
 constexpr int kMaxSlices = 32;  // threads that share one dU micro-tile, at most
 constexpr int kMaxChains = 8;  // ops/kernels.py MAX_CHAINS
-constexpr int kWarpTiles = 16;  // K4-vg-chains: dU mma tiles a warp holds (ops/kernels.py WARP_TILES)
 
 // Shared-memory layout, in 32-bit words, mirrored by ops/kernels.py
 // _smem_bytes_bf16, for C chains (one chain: C = 1) of a column group of W
@@ -93,8 +86,7 @@ constexpr int kWarpTiles = 16;  // K4-vg-chains: dU mma tiles a warp holds (ops/
 //             chains: bf16(U) transposed, column c·N + n in k_stride(KP/2)
 //             words of k-pairs (KP = ceil16(NB)), ceil32(C·N) columns
 //   stage 0, 1  X_f (x_words: RT × NB bf16 values, ≥ 16 zero values), then
-//             C I_rest spans (NS each; vg: dI in place), then S (NS)
-//   dI bf16   K4-vg-chains: ceil8(C·N) columns of k_stride(RT/2) words
+//             C I_rest spans (NS each; K4-vg: dI in place), then S (NS)
 //   scratch   (kScratch)
 __host__ __device__ constexpr int k_stride(int words) { return words + (12 - words % 8) % 8; }
 __host__ __device__ constexpr int x_words(int NB, int tile_t) {
@@ -106,12 +98,8 @@ __host__ __device__ constexpr int stage_words(int NB, int W, int tile_t, int C) 
 __host__ __device__ constexpr int u_words(int NB, int W, int C, bool chains) {
     return chains ? ceil_to(C * W, 32) * k_stride(ceil_to(NB, 16) / 2) : ceil_to(NB, 8) * b_stride(W);
 }
-__host__ __device__ constexpr int di_words(int W, int tile_t, int C, bool chains, bool grad) {
-    return chains && grad ? ceil_to(C * W, 8) * k_stride(ceil_to(tile_t, 16) / 2) : 0;
-}
-size_t smem_bytes_bf16(int NB, int W, int tile_t, int C, bool chains, bool grad) {
-    return ((size_t)u_words(NB, W, C, chains) + 2 * (size_t)stage_words(NB, W, tile_t, C) +
-            (size_t)di_words(W, tile_t, C, chains, grad) + kScratch) * 4;
+size_t smem_bytes_bf16(int NB, int W, int tile_t, int C, bool chains) {
+    return ((size_t)u_words(NB, W, C, chains) + 2 * (size_t)stage_words(NB, W, tile_t, C) + kScratch) * 4;
 }
 
 // Bytes of a span of n elements of `size` bytes at src that one bulk copy
@@ -142,9 +130,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 // The grid is (grid_x, grid_y · G): blockIdx.y = group · grid_y + dU slice.
 // part row b: K4-fwd [ll of each group, pad]; K4-vg [dU (NB·N row-major),
-// ll of each group, pad]; the chain kernels (G = 1, W = N) [dU (C·NB·N,
-// chain-major), ll of each chain, pad] (K4-fwd-chains: no dU). bar: 2 words,
-// zeroed before the first call.
+// ll of each group, pad]; K4-fwd-chains (G = 1, W = N) [ll of each chain,
+// pad]. bar: 2 words, zeroed before the first call.
 template <bool kGrad, bool kChains>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ u,
@@ -166,30 +153,25 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
     const int KP = ceil_to(NB, kChains ? 16 : 8);  // the forward's k extent
     const int BS = b_stride(W);                     // one chain: U's row stride
     const int KS = k_stride(ceil_to(NB, 16) / 2);   // chains: a bf16(U) column's words
-    const int DS = k_stride(RT / 2);                // K4-vg-chains: a bf16 dI column's words
-    const int DC = ceil_to(CN, 8);                  // K4-vg-chains: dI columns held
     const int XW = x_words(NB, tile_t), NS = n_span(W, tile_t);
     const int SW = stage_words(NB, W, tile_t, nch);
     const int UW = u_words(NB, W, nch, kChains);
-    const int DW = di_words(W, tile_t, nch, kChains, kGrad);
     const int NT = (nc + 7) >> 3;  // n-tiles of 8 columns
     const int NG = (NT + 3) >> 2;  // forward n-groups of 4 n-tiles
     float* s_u = smem;
     uint32_t* s_ub = reinterpret_cast<uint32_t*>(smem);
     float* s_stage = smem + UW;
-    uint16_t* s_dih = reinterpret_cast<uint16_t*>(s_stage + 2 * (size_t)SW);
-    const uint32_t* s_di = reinterpret_cast<const uint32_t*>(s_dih);
-    float* s_join = s_stage + 2 * (size_t)SW + DW;
+    float* s_join = s_stage + 2 * (size_t)SW;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int n_tiles = (T + tile_t - 1) / tile_t;
     const bool lead_y = ys == 0;
 
-    // Zero U, both stages and the dI copy (pads stay zero), before any copy
-    // lands in them.
+    // Zero U and both stages (pads stay zero), before any copy lands in
+    // them.
     {
         float4* z = reinterpret_cast<float4*>(smem);
-        const int n4 = (UW + 2 * SW + DW) >> 2;
+        const int n4 = (UW + 2 * SW) >> 2;
         for (int i = tid; i < n4; i += kThreads) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     if (tid == 0) {
@@ -279,7 +261,7 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
     // K4-vg's dU: kMtM × kMtN micro-tiles in registers for the whole kernel,
     // float32 FMA, exactly as K2 (see fused_poisson_ll.cu).
     const int ngc = (nc + kMtN - 1) / kMtN, MG = (NB + kMtM - 1) / kMtM;
-    const int y_items = kGrad && !kChains ? min(kThreads, MG * ngc - ys * kThreads) : 0;
+    const int y_items = kGrad ? min(kThreads, MG * ngc - ys * kThreads) : 0;
     const int n_slices = y_items > 0 ? min(kThreads / y_items, kMaxSlices) : 0;
     const int slice = y_items > 0 ? tid / y_items : 0;
     const int item_l = tid - slice * y_items;
@@ -292,19 +274,6 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
     for (int i = 0; i < (kChains ? 1 : kMtM); ++i)
 #pragma unroll
         for (int j = 0; j < (kChains ? 1 : kMtN); ++j) du[i][j] = 0.f;
-
-    // K4-vg-chains' dU: the 16 × 8 tiles of dU (NB × C·N), item i = m-tile
-    // i % MT, n-tile i / MT; warp w of slice ys holds items
-    // ys·kWarps·kWarpTiles + w + kWarps·j, j < kWarpTiles.
-    constexpr int WT = kChains && kGrad ? kWarpTiles : 1;
-    const int MT = ceil_to(NB, 16) >> 4;
-    const int n_mma = kChains && kGrad ? MT * (DC >> 3) : 0;
-    const int item0 = ys * kWarps * kWarpTiles + warp;
-    float dacc[WT][4];
-#pragma unroll
-    for (int j = 0; j < WT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dacc[j][c] = 0.f;
 
     // the value (of each chain): each forward unit's terms a thread summed
     // into part, the parts added into ll with Kahan's compensation (ll_c)
@@ -378,7 +347,6 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                     const int r = r0 + g + ((c >> 1) << 3), col = (nt0 + j) * 8 + 2 * t + (c & 1);
-                    float d_i = 0.f;
                     if (r < rows && col < nc) {  // the ragged tile, the padded columns
                         const int ch = kChains ? col / N : 0;
                         const int e = ch * NS + r * rs + (col - ch * N);
@@ -394,14 +362,9 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
                         } else {
                             part_v[0] += term;
                         }
-                        if (kGrad) {  // the clip's gradient is 0 outside the active range
-                            d_i = fabsf(i_raw) < EXP_CLIP ? spikes - rate_dt : 0.f;
-                            sir[e] = d_i;
-                        }
+                        if (kGrad)  // the clip's gradient is 0 outside the active range
+                            sir[e] = fabsf(i_raw) < EXP_CLIP ? spikes - rate_dt : 0.f;
                     }
-                    // dI's bf16 copy: every (bin, column) of the tile below
-                    // RT and DC, 0 outside the tile's rows and the columns
-                    if (kChains && kGrad && col < DC) s_dih[(size_t)col * 2 * DS + r] = bf16_bits(d_i);
                 }
 #pragma unroll
             for (int q = 0; q < NQ; ++q) {
@@ -413,41 +376,13 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
 
         if (kGrad) {
             __syncthreads();  // the tile's dI is in shared memory
-            if (lead_y && whole) {
-                if constexpr (kChains) {
-                    for (int ch = 0; ch < C; ++ch)
-                        copy_out(d_irest + ((size_t)ch * T + t0) * N, sir + ch * NS, rows * N);
-                } else {
-                    copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
-                }
-            }
+            if (lead_y && whole) copy_out(d_irest + (size_t)t0 * N, sir, rows * N);
             if (lead_y && !whole)
                 for (int i = tid; i < rows * nc; i += kThreads) {
                     const int r = i / nc;
                     d_irest[(size_t)(t0 + r) * N + c0 + (i - r * nc)] = sir[i];
                 }
-            if constexpr (kChains) {
-                // dU += X_fᵀ · bf16(dI): A = X_fᵀ (16 rows of NB × 16 bins,
-                // built from 16-bit reads), B = dI's bf16 copy (16 bins × 8
-                // columns, a word a register); bins past the tile's rows
-                // meet zero dI
-                const int kb_end = ceil_to(rows, 16) >> 4;
-#pragma unroll
-                for (int j = 0; j < WT; ++j) {
-                    const int it = item0 + kWarps * j;
-                    if (it < n_mma) {
-                        const int mt = it % MT, nt = it / MT;
-                        const uint16_t* xc = sx + (size_t)(2 * t) * NB + mt * 16 + g;
-                        const uint32_t* dc = s_di + (size_t)(nt * 8 + g) * DS + t;
-                        for (int kb = 0; kb < kb_end; ++kb) {
-                            const uint16_t* xk = xc + (size_t)kb * 16 * NB;
-                            const uint32_t a[4] = {pack(xk[0], xk[NB]), pack(xk[8], xk[NB + 8]),
-                                                   pack(xk[8 * NB], xk[9 * NB]), pack(xk[8 * NB + 8], xk[9 * NB + 8])};
-                            mma_bf16(dacc[j], a, dc[kb * 8], dc[kb * 8 + 4]);
-                        }
-                    }
-                }
-            } else if (owns_du) {
+            if (owns_du) {
                 // X_f and dI rows lie NB and rs apart, so each operand is a
                 // scalar read; rows past NB or columns past the group's last
                 // read the next row and land in discarded sums
@@ -467,33 +402,16 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
                 }
             }
         }
-        __syncthreads();  // readers of this stage (and of dI's copy) are done before it is refilled
+        __syncthreads();  // readers of this stage are done before it is refilled
     }
 
-    // -- this block's part of its partial row, width ceil4(NB·C·N + V) with
+    // -- this block's part of its partial row, width ceil4(NB·N + V) with
     // dU, else ceil4(V), for V values: one per group (one chain) or per chain
     const int n_vals = kChains ? nch : G;
     const int ll_off = kGrad ? NB * CN : 0, width = ll_off + n_vals;
     const int w4 = ceil_to(width, 4) >> 2;
     float* row = part + (size_t)blockIdx.x * w4 * 4;
-    if constexpr (kGrad && kChains) {
-        // every dU entry is one thread's: no join
-#pragma unroll
-        for (int j = 0; j < WT; ++j) {
-            const int it = item0 + kWarps * j;
-            if (it < n_mma) {
-                const int mt = it % MT, nt = it / MT;
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int m = mt * 16 + g + ((c >> 1) << 3), col = nt * 8 + 2 * t + (c & 1);
-                    if (m < NB && col < CN) {
-                        const int ch = col / N;
-                        row[((size_t)ch * NB + m) * N + (col - ch * N)] = dacc[j][c];
-                    }
-                }
-            }
-        }
-    } else if constexpr (kGrad) {
+    if constexpr (kGrad) {
         // join the slices' sums in slice order, one micro-tile row at a time
 #pragma unroll
         for (int i = 0; i < kMtM; ++i) {
@@ -545,14 +463,12 @@ cudaError_t launch(const void* x_f, const float* u, const float* i_rest, const f
     static int attr_bytes[kMaxDevices];  // the shared-memory attribute set so far, per device
     if (device < 0 || device >= kMaxDevices || tile_t % 8 != 0) return cudaErrorInvalidValue;
     // one chain: a column group is all N columns, or whole n-tiles of 8;
-    // chains: one group of 1 ≤ C ≤ kMaxChains chains
+    // chains (value only): one group of 1 ≤ C ≤ kMaxChains chains
     if (kChains ? (W != N || C < 1 || C > kMaxChains) : (C != 1 || W < 1 || W > N || (W < N && W % 8 != 0)))
         return cudaErrorInvalidValue;
-    if ((size_t)smem_bytes != smem_bytes_bf16(NB, W, tile_t, C, kChains, kGrad)) return cudaErrorInvalidValue;
-    const int work = kChains ? (ceil_to(NB, 16) / 16) * (ceil_to(C * N, 8) / 8)
-                             : ((NB + kMtM - 1) / kMtM) * ((W + kMtN - 1) / kMtN);
-    const int per_slice = kChains ? kWarps * kWarpTiles : kThreads;
-    if (kGrad ? grid_y * per_slice < work : grid_y != 1) return cudaErrorInvalidValue;
+    if ((size_t)smem_bytes != smem_bytes_bf16(NB, W, tile_t, C, kChains)) return cudaErrorInvalidValue;
+    const int du_tiles = ((NB + kMtM - 1) / kMtM) * ((W + kMtN - 1) / kMtN);
+    if (kGrad ? grid_y * kThreads < du_tiles : grid_y != 1) return cudaErrorInvalidValue;
     const int G = kChains ? 1 : (N + W - 1) / W;
     int current = -1;
     cudaError_t err = cudaGetDevice(&current);
@@ -607,18 +523,6 @@ extern "C" int fused_ll_fwd_chains_bf16(const void* x_f, const float* u, const f
     return (int)launch<false, true>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, C, N,
                                     tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
                                     (cudaStream_t)stream);
-}
-
-// K4-vg-chains: out[0 : C·NB·N] = dU ((C, NB, N)), out[C·NB·N + c] = chain c's
-// ll; d_irest (C, T, N). grid_y: dU slices of 8 · kWarpTiles mma tiles.
-extern "C" int fused_ll_vg_chains_bf16(const void* x_f, const float* u, const float* i_rest,
-                                       const float* s, float* d_irest, float* part, float* out,
-                                       unsigned* bar, int T, int NB, int N, int C, int tile_t,
-                                       int grid_x, int grid_y, int smem_bytes, int device, float dt,
-                                       float log_dt, void* stream) {
-    return (int)launch<true, true>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, C, N,
-                                   tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
-                                   (cudaStream_t)stream);
 }
 
 extern "C" const char* fused_ll_error_string(int err) {

@@ -7,8 +7,12 @@ posterior draws in probability space:
 
     log p(S_ho | S_tr) ≈ logsumexp_k [ LL(S_ho | θ_k) ] − log K
 
-On the fused path (exp-Poisson, float32) each term is one launch of the
-value-only kernel K1.
+Each block of ``batch`` draws is evaluated in one call with a leading
+chain axis, as the JAX package's ``lax.map(..., batch_size)`` ``vmap``s
+every block, the remainder included: on the fused path (exp-Poisson,
+float32) one K3-fwd launch per group of ``kernels.chain_groups`` of the
+block, and with a bf16 design the chain rules (U rounded to bf16,
+K4-fwd-chains), not the one-chain semantics.
 """
 
 from __future__ import annotations
@@ -38,11 +42,11 @@ def predictive_log_likelihood(pop, samples: dict, data_heldout, batch: int = 32)
     """Posterior-predictive log-likelihood of ``data_heldout`` from a stack
     of draws ``samples`` (leading axis = draws; fold chain axes in first),
     numpy arrays or tensors. The draws move to the population's device
-    ``batch`` at a time. Returns a 0-d tensor."""
+    ``batch`` at a time, and each block, a remainder of one draw included,
+    is one evaluation with a chain axis. Returns a 0-d tensor."""
     K = len(next(iter(samples.values())))
     lls = []
     for start in range(0, K, batch):
         block = {k: _on_population(pop, v[start : start + batch]) for k, v in samples.items()}
-        for i in range(len(next(iter(block.values())))):
-            lls.append(pop.log_likelihood({k: v[i] for k, v in block.items()}, data_heldout))
-    return torch.logsumexp(torch.stack(lls), 0) - math.log(K)
+        lls.append(pop.log_likelihood(block, data_heldout))
+    return torch.logsumexp(torch.cat(lls), 0) - math.log(K)

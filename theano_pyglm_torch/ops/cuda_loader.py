@@ -1,14 +1,17 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
 The sources in ``theano_pyglm_torch/csrc/`` have a plain C interface:
-``fused_poisson_ll.cu`` (K1-K3) and ``fused_poisson_ll_bf16.cu`` (K4, the
-bfloat16 design), both including ``fused_ll_common.cuh``, the helpers they
-share. At first use :func:`build_all` compiles each with nvcc for Hopper
-(``sm_90a``), one process per source, all started together, into a shared
-library under ``theano_pyglm_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source, the header and the flags so a stale build is
-never loaded; :func:`load_fused_ll` and :func:`load_fused_ll_bf16` open
-them with ctypes. The clip constant comes from
+``fused_poisson_ll.cu`` (K1, K2, K3-fwd), ``fused_poisson_ll_bf16.cu``
+(K4-fwd, K4-vg, K4-fwd-chains: the bfloat16 design) and
+``fused_ll_vg_chains.cu`` (K3-vg and K4-vg-chains, the chain-batched
+value-and-gradient pair), all including ``fused_ll_common.cuh``, the helpers
+they share. At first use :func:`build_all` compiles each with nvcc for
+Hopper (``sm_90a``), one process per source, all started together, into a
+shared library under ``theano_pyglm_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the source, the header and the flags so
+a stale build is never loaded; :func:`load_fused_ll`,
+:func:`load_fused_ll_bf16` and :func:`load_fused_ll_vg_chains` open them
+with ctypes. The clip constant comes from
 :mod:`theano_pyglm_torch.ops.clipping` as ``-DEXP_CLIP``.
 
 No step falls back: a missing nvcc or a failed compile raises.
@@ -29,17 +32,21 @@ from theano_pyglm_torch.ops.clipping import EXP_CLIP
 __all__ = [
     "SOURCE",
     "SOURCE_BF16",
+    "SOURCE_VG_CHAINS",
     "BUILD_DIR",
     "nvcc_flags",
     "build_all",
     "load_fused_ll",
     "load_fused_ll_bf16",
+    "load_fused_ll_vg_chains",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fused_poisson_ll.cu"
 SOURCE_BF16 = _PKG / "csrc" / "fused_poisson_ll_bf16.cu"
-HEADER = _PKG / "csrc" / "fused_ll_common.cuh"  # included by both sources
+SOURCE_VG_CHAINS = _PKG / "csrc" / "fused_ll_vg_chains.cu"
+SOURCES = (SOURCE, SOURCE_BF16, SOURCE_VG_CHAINS)
+HEADER = _PKG / "csrc" / "fused_ll_common.cuh"  # included by every source
 BUILD_DIR = _PKG / "_build"
 
 
@@ -96,26 +103,31 @@ def _finish(out: Path, job) -> tuple[Path, str]:
 
 
 def build_all(sources=None) -> dict:
-    """Compile the libraries of ``sources`` (default: both) that are not
-    built yet, one nvcc process each, all started together. Returns
+    """Compile the libraries of ``sources`` (default: all of SOURCES) that
+    are not built yet, one nvcc process each, all started together. Returns
     {source: (library path, nvcc's output; empty when it was built)}."""
-    jobs = {src: _start(src) for src in (sources or (SOURCE, SOURCE_BF16))}
+    jobs = {src: _start(src) for src in (sources or SOURCES)}
     return {src: _finish(*job) for src, job in jobs.items()}
 
 
+ENTRY_POINTS = {SOURCE: ("fwd", "vg", "fwd_chains"),
+                SOURCE_BF16: ("fwd_bf16", "vg_bf16", "fwd_chains_bf16"),
+                SOURCE_VG_CHAINS: ("vg_chains", "vg_chains_bf16")}
+
+
 @functools.lru_cache(maxsize=None)
-def _load(source: Path, suffix: str) -> ctypes.CDLL:
+def _load(source: Path) -> ctypes.CDLL:
     """The library of ``source``, built if it is not yet, with the C
-    signatures of its entry points ``fused_ll_{fwd,vg,fwd_chains,vg_chains}``
-    + ``suffix`` declared."""
+    signatures of its entry points ``fused_ll_<name>`` (ENTRY_POINTS)
+    declared."""
     path, _ = build_all((source,))[source]
     lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (x_f, u, i_rest, s, [d_irest], part, out, barrier,
     #  T, NB, N, W (one chain) or C (chains), tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt, stream)
-    for name, n_ptr in (("fwd", 7), ("vg", 8), ("fwd_chains", 7), ("vg_chains", 8)):
-        fn = getattr(lib, f"fused_ll_{name}{suffix}")
-        fn.argtypes = [ptr] * n_ptr + [i32] * 9 + [f32, f32, ptr]
+    for name in ENTRY_POINTS[source]:
+        fn = getattr(lib, f"fused_ll_{name}")
+        fn.argtypes = [ptr] * (8 if name.startswith("vg") else 7) + [i32] * 9 + [f32, f32, ptr]
         fn.restype = i32
     lib.fused_ll_error_string.argtypes = [i32]
     lib.fused_ll_error_string.restype = ctypes.c_char_p
@@ -123,11 +135,17 @@ def _load(source: Path, suffix: str) -> ctypes.CDLL:
 
 
 def load_fused_ll() -> ctypes.CDLL:
-    """The K1-K3 library (float32 X_f)."""
-    return _load(SOURCE, "")
+    """The K1, K2 and K3-fwd library (float32 X_f)."""
+    return _load(SOURCE)
 
 
 def load_fused_ll_bf16() -> ctypes.CDLL:
-    """The K4 library (bfloat16 X_f): K1-K3's entry points with ``_bf16``
-    names."""
-    return _load(SOURCE_BF16, "_bf16")
+    """The K4-fwd, K4-vg and K4-fwd-chains library (bfloat16 X_f): their
+    float32 counterparts' entry points with ``_bf16`` names."""
+    return _load(SOURCE_BF16)
+
+
+def load_fused_ll_vg_chains() -> ctypes.CDLL:
+    """The K3-vg and K4-vg-chains library (``fused_ll_vg_chains`` and
+    ``fused_ll_vg_chains_bf16``)."""
+    return _load(SOURCE_VG_CHAINS)

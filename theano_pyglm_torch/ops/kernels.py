@@ -27,7 +27,9 @@ reaches under ``vmap`` (plain XLA there, not ``pallas_call``s):
 
 K3 is a chain dimension of K1/K2's columns: column c·N + n reads
 U[c, :, n], I_rest[c, :, n] and S[:, n], so one tile of X_f and S feeds every
-chain (see the source note).
+chain. K3-fwd is an instance of K1/K2's source; K3-vg has a source of its
+own, ``csrc/fused_ll_vg_chains.cu``, with both products on the tensor cores
+(see the source notes).
 
 Each wrapper launches its kernel for CUDA tensors and adds one to its entry
 of :data:`LAUNCHES`; for CPU tensors it runs the plain torch version beside
@@ -64,9 +66,10 @@ f32(X_f)·U and dU = f32(X_f)ᵀ·dI. With a chain axis (the ``custom_vmap``
 rules) U and dI are rounded to bfloat16 (to nearest even) for the products:
 I = I_rest + X_f·bf16(U) and dU = X_fᵀ·bf16(dI), accumulated in float32,
 dI_rest in float32. The four kernels of ``csrc/fused_poisson_ll_bf16.cu``
-(K4) carry them: K4-fwd and K4-vg for one chain, K4-fwd-chains and
-K4-vg-chains for every group of chains, a group of one included, so that a
-chain axis of 1 keeps the chain semantics. The plain versions widen a
+(K4) carry them: K4-fwd and K4-vg for one chain, K4-fwd-chains for every
+group of chains, a group of one included, so that a chain axis of 1 keeps
+the chain semantics; K4-vg-chains, the gradient of every group, is the
+bfloat16 instance of K3-vg's source. The plain versions widen a
 bfloat16 X_f exactly to U's dtype and, on a chain axis, round U and dI.
 """
 
@@ -93,6 +96,9 @@ __all__ = [
     "LaunchPlan",
     "chain_groups",
     "du_tiles",
+    "mma_tiles",
+    "vg_chains_items",
+    "vg_chains_k_slices",
     "fused_ll_value",
     "fused_ll_value_and_grad",
     "fused_ll_value_chains",
@@ -111,7 +117,8 @@ WARPS = THREADS // 32
 TILE_MAX = 128  # the widest time tile, in bins
 SMEM_LIMIT = 227 * 1024 - 256  # a Hopper block's 227 KB, less the kernels' static shared memory
 MAX_CHAINS = 8  # K3's and K4-chains' chains, at most (kMaxChains in the sources)
-WARP_TILES = 16  # K4-vg-chains: dU mma tiles a warp holds (kWarpTiles in the bf16 source)
+WARP_TILES = 16  # K3-vg, K4-vg-chains: dU mma tiles a warp holds, at most (kWarpTiles)
+UNIT_TILES = 8  # K3-vg, K4-vg-chains: n-tiles of a forward unit, at most (kUnitTiles)
 # Launches of each kernel on a CUDA device; the CPU path does not count.
 # K4 (a bfloat16 X_f) counts under the float32 kernel's key with "_bf16".
 LAUNCHES = {"fwd": 0, "vg": 0, "fwd_chains": 0, "vg_chains": 0,
@@ -195,10 +202,10 @@ def _ceil_to(x: int, m: int) -> int:
 
 
 def _smem_bytes(NB: int, N: int, tile_t: int, chains: int = 1) -> int:
-    """Mirror of smem_bytes_for in the source: U, two stages of the X_f,
-    I_rest and S tiles, and a join scratch, in 32-bit words, for a block
-    that holds N columns (a column group's width) of each of ``chains``
-    chains (K3; 1 for K1/K2)."""
+    """Mirror of smem_bytes_for in ``fused_poisson_ll.cu``: U, two stages
+    of the X_f, I_rest and S tiles, and a join scratch, in 32-bit words, for
+    a block that holds N columns (a column group's width) of each of
+    ``chains`` chains (K3-fwd; 1 for K1/K2)."""
     cols = _ceil_to(chains * N, 8)
     bs = cols + (0 if cols % 16 else 8)  # b_stride of the C·N columns
     ns = _ceil_to(tile_t * N, 4) + 8  # n_span
@@ -214,23 +221,47 @@ def _odd4(words: int) -> int:
 
 
 def _smem_bytes_bf16(NB: int, N: int, tile_t: int, chains=None, grad: bool = False) -> int:
-    """Mirror of smem_bytes_bf16 in ``fused_poisson_ll_bf16.cu``, in 32-bit
-    words: U, two stages of the bfloat16 X_f tile (its rows, then at least
-    16 zero values that the k-steps past the last row's NB read) and the
-    I_rest and S spans, K4-vg-chains' bfloat16 copy of dI, and the join
-    scratch. ``chains`` None: K4 on N columns (a column group's width), U
-    in float32 rows as K1/K2 hold it; else K4-chains on that many chains,
-    bf16(U) transposed, two k-values a word."""
+    """The shared memory of a K4 call, in bytes. K4-fwd, K4-vg and
+    K4-fwd-chains: the mirror of smem_bytes_bf16 in
+    ``fused_poisson_ll_bf16.cu``, in 32-bit words: U, two stages of the
+    bfloat16 X_f tile (its rows, then at least 16 zero values that the
+    k-steps past the last row's NB read) and the I_rest and S spans, and
+    the join scratch. ``chains`` None: K4 on N columns (a column group's
+    width), U in float32 rows as K1/K2 hold it; else K4-fwd-chains on that
+    many chains, bf16(U) transposed, two k-values a word. K4-vg-chains
+    (``chains`` and ``grad``): :func:`_smem_bytes_vg_chains`."""
+    if chains is not None and grad:
+        return _smem_bytes_vg_chains(NB, N, chains, tile_t, bf16=True)
     C = 1 if chains is None else chains
     RT = _ceil_to(tile_t, 16)
     stage = _ceil_to(RT * NB + 16, 8) // 2 + (C + 1) * (_ceil_to(tile_t * N, 4) + 8)
     if chains is None:
         cols = _ceil_to(N, 8)
-        u_words, di_words = _ceil_to(NB, 8) * (cols + (0 if cols % 16 else 8)), 0
+        u_words = _ceil_to(NB, 8) * (cols + (0 if cols % 16 else 8))
     else:
         u_words = _ceil_to(C * N, 32) * _odd4(_ceil_to(NB, 16) // 2)
-        di_words = _ceil_to(C * N, 8) * _odd4(RT // 2) if grad else 0
-    return 4 * (u_words + 2 * stage + di_words + 8 * THREADS)
+    return 4 * (u_words + 2 * stage + 8 * THREADS)
+
+
+def _smem_bytes_vg_chains(NB: int, N: int, C: int, tile_t: int, bf16: bool) -> int:
+    """Mirror of smem_bytes_vg_chains in ``fused_ll_vg_chains.cu`` (K3-vg,
+    K4-vg-chains on C chains), in 32-bit words: U (K3-vg float32 rows of
+    b_stride(C·N); K4 bf16(U) transposed in k-pairs, ceil8(C·N) columns),
+    two stages of the X_f tile (K4: at least 16 zero values after its rows)
+    and the C I_rest spans and the S span, and K4's bfloat16 copy of dI
+    (ceil8(C·N) columns of bin pairs). No join scratch: after the tiles the
+    whole region is the cross-block sums' scratch."""
+    CN, RT = C * N, _ceil_to(tile_t, 16)
+    ns = _ceil_to(tile_t * N, 4) + 8  # n_span
+    if bf16:
+        u_words = _ceil_to(CN, 8) * _odd4(_ceil_to(NB, 16) // 2)
+        x_words = _ceil_to(RT * NB + 16, 8) // 2
+        di_words = _ceil_to(CN, 8) * _odd4(RT // 2)
+    else:
+        cols = _ceil_to(CN, 8)
+        u_words = _ceil_to(NB, 8) * (cols + (0 if cols % 16 else 8))
+        x_words, di_words = RT * NB, 0
+    return 4 * (u_words + 2 * (x_words + (C + 1) * ns) + di_words)
 
 
 # K2's dU micro-tile, rows × columns (kMtM, kMtN in the source): at the
@@ -238,16 +269,65 @@ def _smem_bytes_bf16(NB: int, N: int, tile_t: int, chains=None, grad: bool = Fal
 DU_TILE = (9, 7)
 
 
-def du_tiles(NB: int, N: int, chains: int = 1) -> int:
-    """K2's (K3-vg's) dU in DU_TILE micro-tiles, one per thread of a grid_y
-    slice; a micro-tile never crosses a chain."""
-    return -(-NB // DU_TILE[0]) * chains * -(-N // DU_TILE[1])
+def du_tiles(NB: int, N: int) -> int:
+    """K2's (K4-vg's) dU in DU_TILE micro-tiles, one per thread of a
+    grid_y slice."""
+    return -(-NB // DU_TILE[0]) * -(-N // DU_TILE[1])
 
 
 def mma_tiles(NB: int, N: int, chains: int) -> int:
-    """K4-vg-chains' dU in 16 × 8 mma tiles over NB rows and the C·N
-    columns of all chains; a warp holds WARP_TILES of them."""
+    """K3-vg's and K4-vg-chains' dU in 16 × 8 mma tiles (items) over NB
+    rows and the C·N columns of all chains; a warp holds at most WARP_TILES
+    of them."""
     return -(-NB // 16) * -(-(chains * N) // 8)
+
+
+def _work_warps(items: int) -> int:
+    """The warps that share a grid_y slice's dU items: the fewest of 1, 2,
+    4, 8 whose runs hold at most WARP_TILES items (work_warps in
+    ``fused_ll_vg_chains.cu``)."""
+    return next(w for w in (1, 2, 4) if items <= w * WARP_TILES) if items <= 4 * WARP_TILES else WARPS
+
+
+def vg_chains_k_slices(NB: int, N: int, chains: int, grid_y: int) -> int:
+    """K3-vg's and K4-vg-chains' k-slices: the warps that share a run of dU
+    items split a tile's k-steps, each into a partial row of its own, so a
+    call's scratch holds grid_x · k-slices rows."""
+    slice_items = -(-mma_tiles(NB, N, chains) // grid_y)
+    return WARPS // _work_warps(slice_items)
+
+
+def vg_chains_items(NB: int, N: int, chains: int, grid_y: int) -> list:
+    """Mirror of the dU work of K3-vg and K4-vg-chains: for each grid_y
+    slice and warp, (its k-slice, its run of (m-tile, n-tile) items). A
+    slice's items go m-major (item q: m-tile q // NT, n-tile q % NT over the
+    NT n-tiles of the C·N columns) to IW item-warps in runs of per_warp =
+    ceil(slice items / IW) (IW the fewest of 1, 2, 4, 8 with per_warp ≤
+    WARP_TILES); warp w takes the run of item-warp w % IW and the tile's
+    k-steps ≡ w // IW (mod WARPS / IW). A run covers few m-tiles, and the
+    kernel builds one A fragment of X_fᵀ per m-tile of a group of its
+    items and k-step."""
+    NT = -(-(chains * N) // 8)
+    n_items = mma_tiles(NB, N, chains)
+    slice_items = -(-n_items // grid_y)
+    iw_count = _work_warps(slice_items)
+    per_warp = -(-slice_items // iw_count)
+    runs = []
+    for y in range(grid_y):
+        end = min((y + 1) * slice_items, n_items)
+        for w in range(WARPS):
+            q0 = y * slice_items + (w % iw_count) * per_warp
+            runs.append((w // iw_count, [divmod(q, NT) for q in range(q0, min(q0 + per_warp, end))]))
+    return runs
+
+
+def _unit_rows_cap(N: int, C: int) -> int:
+    """K3-vg's and K4-vg-chains' widest tile: forward units are 16 bins ×
+    up to UNIT_TILES n-tiles, the C·N columns in NGF n-groups; at most
+    16·(WARPS // NGF) bins keep each warp at one unit a tile where NGF ≤
+    WARPS."""
+    ngf = -(-(-(-(C * N) // 8)) // UNIT_TILES)
+    return 16 * max(1, WARPS // ngf)
 
 
 def _group_cols(NB: int, N: int, fits) -> int:
@@ -302,10 +382,11 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     beside the narrowest tile, else ValueError (:func:`chain_groups` cuts
     the chains so that each group fits K3). The tile is the widest multiple
     of 4 bins (8 for a bfloat16 X_f, whose tile spans then start on 16
-    bytes at any NB) up to TILE_MAX whose two stages fit beside the group,
-    then narrowed so that every block takes the same number of tiles, give
-    or take one. K2, K3-vg and K4-vg split a group's dU micro-tiles over
-    grid_y slices of THREADS; K4-vg-chains its dU mma tiles over slices of
+    bytes at any NB) up to TILE_MAX (K3-vg, K4-vg-chains: up to
+    :func:`_unit_rows_cap`) whose two stages fit beside the group, then
+    narrowed so that every block takes the same number of tiles, give or
+    take one. K2 and K4-vg split a group's dU micro-tiles over grid_y slices
+    of THREADS; K3-vg and K4-vg-chains their dU mma tiles over slices of
     WARPS · WARP_TILES. Raises ValueError when not even a group of 8
     columns fits at the narrowest tile, when one time tile's blocks
     outnumber the SMs, or when C is outside the kernel's range.
@@ -313,7 +394,27 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     if min(T, NB, N, sm_count) < 1:
         raise ValueError(f"empty launch: T={T} NB={NB} N={N} sm_count={sm_count}")
     C = 1 if chains is None else int(chains)
-    if x_bytes == 4:
+    tile_cap = TILE_MAX
+    if x_bytes not in (2, 4):
+        raise ValueError(f"X_f of {x_bytes}-byte elements: the kernels take float32 or bfloat16")
+    if chains is not None and grad and (x_bytes == 2 or C > 1):
+        # K3-vg (a float32 X_f, 2 ≤ C) and K4-vg-chains (bfloat16, 1 ≤ C)
+        name, least = ("K4-chains", 1) if x_bytes == 2 else ("K3", 2)
+        step = 8 if x_bytes == 2 else 4
+
+        def smem(W, tile):
+            return _smem_bytes_vg_chains(NB, W, C, tile, bf16=x_bytes == 2)
+
+        if not least <= C <= MAX_CHAINS:
+            raise ValueError(f"{name} takes {least} to {MAX_CHAINS} chains, not C={C} (NB={NB}, N={N})")
+        if smem(N, step) > SMEM_LIMIT:
+            raise ValueError(
+                f"{name} at NB={NB}, N={N}, C={C} needs {smem(N, step)} B of shared memory "
+                f"(> {SMEM_LIMIT}); it takes no column groups"
+            )
+        W, tile_cap = N, _unit_rows_cap(N, C)
+        slices = -(-mma_tiles(NB, N, C) // (WARPS * WARP_TILES))
+    elif x_bytes == 4:
         step = 4
 
         def smem(W, tile):
@@ -330,8 +431,8 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
             )
         else:
             W = N
-        slices = -(-du_tiles(NB, W, C) // THREADS)
-    elif x_bytes == 2:
+        slices = -(-du_tiles(NB, W) // THREADS)
+    else:
         step = 8
 
         def smem(W, tile):
@@ -348,13 +449,10 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
                 f"(> {SMEM_LIMIT}); it takes no column groups"
             )
         else:
-            W = N
-            slices = -(-mma_tiles(NB, N, C) // (WARPS * WARP_TILES))
-    else:
-        raise ValueError(f"X_f of {x_bytes}-byte elements: the kernels take float32 or bfloat16")
+            W, slices = N, 1
     groups = -(-N // W)
     tile_max = step
-    while tile_max + step <= TILE_MAX and smem(W, tile_max + step) <= SMEM_LIMIT:
+    while tile_max + step <= tile_cap and smem(W, tile_max + step) <= SMEM_LIMIT:
         tile_max += step
     grid_y = slices if grad else 1
     if grid_y * groups > sm_count:
@@ -501,16 +599,23 @@ def _launch_chains(with_grad: bool, x_f, u, i_rest, s, dt: float):
 
 
 def _launch_k3(with_grad: bool, x_f, u, i_rest, s, dt: float):
-    """K3, or K4-chains for a bfloat16 X_f, on the C chains of u."""
+    """K3, or K4-chains for a bfloat16 X_f, on the C chains of u: the
+    value-and-gradient kernels from their own library."""
     lib, tag = _library(x_f)
+    if with_grad:
+        from theano_pyglm_torch.ops.cuda_loader import load_fused_ll_vg_chains
+
+        lib = load_fused_ll_vg_chains()
     T, NB = x_f.shape
     C, _, N = u.shape
     dev = x_f.device
     plan = launch_plan(T, NB, N, _sm_count(dev.index), with_grad, chains=C, x_bytes=x_f.element_size())
-    # float4 rows: dU (K3-vg), then one value per chain
+    # float4 rows: dU (K3-vg), then one value per chain; the value and
+    # gradient kernels write a row per block and k-slice
     n_du = C * NB * N if with_grad else 0
     width = _ceil_to(n_du + C, 4)
-    part = torch.empty((plan.grid_x, width), dtype=torch.float32, device=dev)
+    rows = plan.grid_x * (vg_chains_k_slices(NB, N, C, plan.grid_y) if with_grad else 1)
+    part = torch.empty((rows, width), dtype=torch.float32, device=dev)
     out = torch.empty(width, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sizes = (T, NB, N, C, plan.tile_t, plan.grid_x, plan.grid_y, plan.smem_bytes,

@@ -3,9 +3,10 @@
 compared.
 
 Compiles each checkout's ``theano_pyglm_torch/csrc/fused_poisson_ll.cu`` (and
-``fused_poisson_ll_bf16.cu`` where the checkout has it) to cubins with this
-checkout's nvcc flags, and prints for each kernel (K1, K2, K3-fwd / K3-vg and
-the four K4 where the checkout has them) its registers, stack and
+``fused_poisson_ll_bf16.cu`` and ``fused_ll_vg_chains.cu`` where the
+checkout has them) to cubins with this checkout's nvcc flags, and prints for
+each kernel (K1, K2, K3-fwd / K3-vg and the four K4 where the checkout has
+them, from whichever source holds them) its registers, stack and
 instruction count, and how many lines of its SASS differ from the first
 checkout's, once the addresses, the encodings and the kernel parameters'
 constant-bank offsets are masked (a new kernel parameter moves every later
@@ -29,10 +30,12 @@ sys.path.insert(0, REPO)
 from theano_pyglm_torch.ops import cuda_loader  # noqa: E402
 
 # fused_ll_tiles<kGrad> (one-chain template) or fused_ll_tiles<kGrad, kChains>,
-# and the bf16 design's fused_ll_bf16_tiles<kGrad, kChains>; a bool argument
-# reads "true" or "(bool)1"
+# the bf16 design's fused_ll_bf16_tiles<kGrad, kChains> (a bool argument
+# reads "true" or "(bool)1"), and the chain value-and-gradient pair's
+# vg_chains_tiles<float> (K3-vg) and <unsigned short> (K4-vg-chains)
 _TEMPLATE = re.compile(r"fused_ll(_bf16)?_tiles<([^,>]+)(?:, ?([^>]+))?>")
-_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_bf16.cu")
+_VG_CHAINS = re.compile(r"vg_chains_tiles<([^>]+)>")
+_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_bf16.cu", "fused_ll_vg_chains.cu")
 _MASKS = [
     (re.compile(r"/\*[0-9a-f]{4,}\*/"), ""),  # the instruction's address
     (re.compile(r"/\* 0x[0-9a-f]+ \*/"), ""),  # its encoding
@@ -41,6 +44,9 @@ _MASKS = [
 
 
 def _kernel(demangled: str):
+    m = _VG_CHAINS.search(demangled)
+    if m is not None:
+        return "K3-vg" if m.group(1) == "float" else "K4-vg-chains"
     m = _TEMPLATE.search(demangled)
     if m is None:
         return None
