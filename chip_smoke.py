@@ -20,9 +20,8 @@ Phases, each of which raises on a mismatch or a non-finite value:
    3.35 TB/s, or the products as the card can do them at their accuracy,
    float32-accurate ones as 3xTF32 at 495 TFLOP/s, whichever is longer; see
    bound()) and the roofline share of the cold time. Then K3 (K3-fwd and
-   K3-vg, the chain-batched pair; K3-vg and K4-vg-chains are built from
-   csrc/fused_ll_vg_chains.cu) on the flagship's 4
-   chains: against its plain version (with a clipped case) and against
+   K3-vg, the chain-batched pair; the four chain kernels are built from
+   csrc/fused_ll_chains.cu) on the flagship's 4 chains: against its plain version (with a clipped case) and against
    K1/K2 on each chain alone, bit for bit repeated, one launch per call,
    warm and cold times beside the plain version's and K1/K2's on the 4
    chains in turn, its bound (X_f and S read once for all chains) and share.
@@ -194,7 +193,7 @@ from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  #
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
 from theano_pyglm_torch.ops.cuda_loader import (  # noqa: E402
-    SOURCE, SOURCE_BF16, SOURCE_VG_CHAINS, build_all, load_fused_ll, load_fused_ll_bf16, load_fused_ll_vg_chains)
+    SOURCE, SOURCE_BF16, SOURCE_CHAINS, build_all, load_fused_ll, load_fused_ll_bf16, load_fused_ll_chains)
 from theano_pyglm_torch.parallel import gibbs_sample_chains  # noqa: E402
 from theano_pyglm_torch.scripts import acceptance, rgc_flagship  # noqa: E402
 from theano_pyglm_torch.utils.diagnostics import adjusted_rand_index  # noqa: E402
@@ -321,7 +320,7 @@ def setup() -> str:
     built = build_all()  # one nvcc per source, started together
     load_fused_ll()
     load_fused_ll_bf16()
-    load_fused_ll_vg_chains()
+    load_fused_ll_chains()
     log(f"built {', '.join(os.path.relpath(p, REPO) for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for _, build_log in built.values():
@@ -2086,7 +2085,7 @@ def main() -> None:
              "fwd_bf16": "K4-fwd fused_ll_fwd_bf16", "vg_bf16": "K4-vg fused_ll_vg_bf16",
              "fwd_chains_bf16": "K4-fwd-chains fused_ll_fwd_chains_bf16",
              "vg_chains_bf16": "K4-vg-chains fused_ll_vg_chains_bf16"}
-    sources = {k: SOURCE_VG_CHAINS if k.startswith("vg_chains") else SOURCE_BF16 if k in BF16_KERNELS else SOURCE
+    sources = {k: SOURCE_CHAINS if "chains" in k else SOURCE_BF16 if k in BF16_KERNELS else SOURCE
                for k in KERNELS}
     # library_ms is null: no single PyTorch call computes the fused value or value+grad
     print(json.dumps({"kernels": [

@@ -305,11 +305,105 @@ def test_vg_chains_plans_and_shared_memory(bf16):
         plan = kernels.launch_plan(T, NB, N, H100_SMS, True, chains=C, x_bytes=x_bytes)
         assert plan.groups == 1 and plan.group_cols == N
         assert plan.tile_t % (8 if bf16 else 4) == 0 and plan.tile_t <= kernels._unit_rows_cap(N, C)
-        assert plan.smem_bytes == kernels._smem_bytes_vg_chains(NB, N, C, plan.tile_t, bf16)
+        assert plan.smem_bytes == kernels._smem_bytes_chains(NB, N, C, plan.tile_t, bf16, grad=True)
         assert plan.smem_bytes <= kernels.SMEM_LIMIT
         assert plan.grid_y == -(-kernels.mma_tiles(NB, N, C) // (kernels.WARPS * kernels.WARP_TILES))
     flag = kernels.launch_plan(60_000, 135, 27, H100_SMS, True, chains=4, x_bytes=x_bytes)
     assert (flag.tile_t, flag.grid_x, flag.grid_y) == ((64, H100_SMS, 1) if bf16 else (60, H100_SMS, 1))
+
+
+# the shapes of the chain samplers' value calls (T, NB, N, C): the flagship at
+# C = 4 and 7f's C = 2, configs 2-4, N = 60's groups of 2
+VALUE_SHAPES = [(60_000, 135, 27, 4), (60_000, 135, 27, 2), (240_000, 50, 10, 2), (30_000, 50, 10, 4),
+                (60_000, 80, 16, 4), (30_000, 300, 60, 2)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_value_chains_plans_and_shared_memory(bf16):
+    """K3-fwd's and K4-fwd-chains' plans (the value-only instances of the
+    chain source) at every path's shape and every group that chain_groups
+    gives at NB = 5N up to N = 64: one column group, one grid_y slice, the
+    tile a multiple of 4 (bf16: 8) within the unit cap (units of 32 bins ×
+    up to VALUE_TILES n-tiles, one a warp), the shared memory
+    the source's layout (the mirror) within SMEM_LIMIT: U and two stages,
+    no dI copy, so the gradient instance's less K4's bf16 dI columns. At
+    the flagship: tiles of 60 (64) bins on every SM, 199,520 (138,112) B."""
+    x_bytes = 2 if bf16 else 4
+    shapes = VALUE_SHAPES + [(1000, 5 * n, n, c) for n in range(1, 65) for C in (2, 4, 8)
+                             for c in set(kernels.chain_groups(5 * n, n, C)) if c > 1 or bf16]
+    for T, NB, N, C in shapes:
+        plan = kernels.launch_plan(T, NB, N, H100_SMS, False, chains=C, x_bytes=x_bytes)
+        assert (plan.groups, plan.group_cols, plan.grid_y) == (1, N, 1)
+        assert plan.tile_t % (8 if bf16 else 4) == 0 and plan.tile_t <= kernels._unit_rows_cap(N, C, grad=False)
+        assert plan.smem_bytes == kernels._smem_bytes_chains(NB, N, C, plan.tile_t, bf16, grad=False)
+        assert plan.smem_bytes <= kernels.SMEM_LIMIT
+        di = 4 * -(-(C * N) // 8) * 8 * kernels._odd4(-(-plan.tile_t // 16) * 8) if bf16 else 0
+        assert kernels._smem_bytes_chains(NB, N, C, plan.tile_t, bf16, grad=True) - plan.smem_bytes == di
+    flag = kernels.launch_plan(60_000, 135, 27, H100_SMS, False, chains=4, x_bytes=x_bytes)
+    want = (64, H100_SMS, 138_112) if bf16 else (60, H100_SMS, 199_520)
+    assert (flag.tile_t, flag.grid_x, flag.smem_bytes) == want
+
+
+def _tiles_of(plan, T):
+    return [[(i * plan.tile_t, min(T, (i + 1) * plan.tile_t)) for i in range(b, plan.n_tiles, plan.grid_x)]
+            for b in range(plan.grid_x)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("C", range(1, 9))
+def test_value_chains_tiles_cover_time_once(C, bf16):
+    """The value calls of C chains at the flagship's widths (a group of one
+    float32 chain is K1's call): every bin in exactly one tile, over T from
+    one bin to past two tiles a block, no block more than one tile above
+    another (the launch plan's balance)."""
+    x_bytes = 2 if bf16 else 4
+    for T in (1, 63, 700, 60_000, kernels.TILE_MAX * H100_SMS * 2 + 1):
+        plan = kernels.launch_plan(T, 135, 27, H100_SMS, False, chains=C, x_bytes=x_bytes)
+        if C == 1 and not bf16:
+            assert plan == kernels.launch_plan(T, 135, 27, H100_SMS, False)
+        per_block = _tiles_of(plan, T)
+        spans = sorted(span for tiles in per_block for span in tiles)
+        assert spans[0][0] == 0 and spans[-1][1] == T
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        counts = [len(tiles) for tiles in per_block]
+        assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+
+
+# the most chains a launch at NB = 5N, as N grows: (first N, last N, chains)
+MOST_CHAINS = [(1, 33, 8), (34, 35, 7), (36, 38, 6), (39, 43, 5), (44, 46, 4), (47, 53, 3), (54, 64, 2),
+               (65, 100, 1)]
+
+
+def test_chain_groups_are_pinned():
+    """chain_groups gives the groups it gave under the chain kernels'
+    first layout at every N up to 100 at NB = 5N (8 chains a launch up to
+    N = 33, 4 up to 46, 3 up to 53, 2 up to 64, then one), and at the
+    paths' shapes: the value and gradient calls of a sampler share their
+    groups, and the sums of a call do not change with the layout."""
+    for lo, hi, most in MOST_CHAINS:
+        for n in range(lo, hi + 1):
+            assert kernels.chain_groups(5 * n, n, most) == (most,), n
+            if most < kernels.MAX_CHAINS:
+                assert len(kernels.chain_groups(5 * n, n, most + 1)) == 2, n
+    pinned = {(135, 27, 4): (4,), (50, 10, 2): (2,), (50, 10, 4): (4,), (80, 16, 4): (4,), (300, 60, 4): (2, 2),
+              (135, 27, 9): (5, 4), (135, 27, 17): (6, 6, 5), (170, 34, 8): (4, 4), (235, 47, 4): (2, 2),
+              (265, 53, 3): (3,), (325, 65, 2): (1, 1)}
+    for (NB, N, C), want in pinned.items():
+        assert kernels.chain_groups(NB, N, C) == want, (NB, N, C)
+
+
+def test_chain_library_holds_the_four_chain_kernels():
+    """The four chain kernels' entry points are in the chain source's
+    library and in no other; K1/K2 and K4-fwd/K4-vg keep theirs."""
+    from theano_pyglm_torch.ops import cuda_loader
+
+    ep = cuda_loader.ENTRY_POINTS
+    assert set(ep) == set(cuda_loader.SOURCES)
+    assert ep[cuda_loader.SOURCE_CHAINS] == ("fwd_chains", "vg_chains", "fwd_chains_bf16", "vg_chains_bf16")
+    assert ep[cuda_loader.SOURCE] == ("fwd", "vg") and ep[cuda_loader.SOURCE_BF16] == ("fwd_bf16", "vg_bf16")
+    for name in ("fwd_chains", "fwd_chains_bf16"):
+        assert [src.name for src, names in ep.items() if name in names] == ["fused_ll_chains.cu"]
+    assert sorted(n for names in ep.values() for n in names) == sorted(kernels.LAUNCHES)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -631,29 +725,38 @@ def test_chain_groups_on_card(cuda, T, NB, N, C):
         (60_000, 135, 27, 4),  # the flagship's 4 chains
         (240_000, 50, 10, 2),  # config 2: 12 dU tiles, all 8 warps in k-slices
         (30_000, 300, 60, 4),  # N = 60: two groups of 2 chains, dU over 3 grid_y slices
+        (60_000, 135, 27, 1),  # a chain axis of 1: K4-chains (float32: K1/K2)
+        (20_000, 135, 27, 9),  # past MAX_CHAINS: groups of 5 and 4 chains
     ],
 )
 def test_vg_chains_kernels_match_reference_on_card(cuda, T, NB, N, C, bf16):
-    """K3-vg (float32 X_f) and K4-vg-chains (bf16 X_f) of
-    csrc/fused_ll_vg_chains.cu against the plain version: each value 1e-5
-    relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 / atol=1e-6, bit for
-    bit repeated, one launch per group of chain_groups."""
+    """The four chain kernels of csrc/fused_ll_chains.cu, K3-vg and K3-fwd
+    (float32 X_f), K4-vg-chains and K4-fwd-chains (bf16 X_f), against the
+    plain versions: each value 1e-5 relative, dU 1e-5 relative L2, dI_rest
+    rtol=1e-5 / atol=1e-6, bit for bit repeated, one launch per group of
+    chain_groups (K1/K2 for a float32 chain alone)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     x, u, ir, s = _torch(*_inputs(T, NB, N, C, i_shift=-3.0, clip_bins=100), device=cuda)
     if bf16:
         x = x.to(torch.bfloat16)
-    key = "vg_chains_bf16" if bf16 else "vg_chains"
+    tag = "_bf16" if bf16 else ""
     groups = kernels.chain_groups(NB, N, C)
-    before = kernels.LAUNCHES[key]
+    before = dict(kernels.LAUNCHES)
     ll, du, dir_ = fused_ll_value_and_grad_chains(x, u, ir, s, DT)
     again = fused_ll_value_and_grad_chains(x, u, ir, s, DT)
+    v, v_again = fused_ll_value_chains(x, u, ir, s, DT), fused_ll_value_chains(x, u, ir, s, DT)
     ll_r, du_r, dir_r = fused_poisson_ll_chains_reference(x, u, ir, s, DT)
+    v_r = fused_poisson_ll_chains_value_reference(x, u, ir, s, DT)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[key] - before == 2 * sum(1 for c in groups if bf16 or c > 1)
+    launched = 2 * sum(1 for c in groups if bf16 or c > 1)
+    assert kernels.LAUNCHES["vg_chains" + tag] - before["vg_chains" + tag] == launched
+    assert kernels.LAUNCHES["fwd_chains" + tag] - before["fwd_chains" + tag] == launched
     torch.testing.assert_close(ll, ll_r, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(v, v_r, rtol=1e-5, atol=0.0)
     assert float(torch.linalg.norm(du - du_r) / torch.linalg.norm(du_r)) <= 1e-5
     torch.testing.assert_close(dir_, dir_r, rtol=1e-5, atol=1e-6)
     assert all(torch.equal(a, b) for a, b in zip((ll, du, dir_), again))
+    assert torch.equal(v, v_again)
 
 
 @pytest.mark.cuda

@@ -542,11 +542,14 @@ def _block_tiles(plan, T):
 def test_bf16_launch_plan_tiles_cover_time_once(T, chains):
     """K4 (no chain axis) and K4-chains at NB=135, N=27: every bin in one
     tile, tiles of 8s (a tile's bf16 X_f span, 16·NB bytes a step, starts on
-    16 bytes at odd NB), no block more than one tile above another, the
-    shared memory within the limit and the mirror's."""
+    16 bytes at odd NB) up to TILE_MAX (K4-chains: the unit cap, which for
+    the value kernel's 32-bin units may pass it), no block more than one
+    tile above another, the shared memory within the limit and the
+    mirror's."""
     for grad in (False, True):
         plan = kernels.launch_plan(T, 135, 27, H100_SMS, grad, chains=chains, x_bytes=2)
-        assert plan.tile_t % 8 == 0 and 8 <= plan.tile_t <= kernels.TILE_MAX
+        most = kernels._unit_rows_cap(27, chains, grad) if chains else kernels.TILE_MAX
+        assert plan.tile_t % 8 == 0 and 8 <= plan.tile_t <= most
         assert all((t0 * 135 * 2) % 16 == 0 for t0 in range(0, T, plan.tile_t))
         per_block = _block_tiles(plan, T)
         spans = sorted(span for tiles in per_block for span in tiles)
@@ -555,7 +558,9 @@ def test_bf16_launch_plan_tiles_cover_time_once(T, chains):
         counts = [len(tiles) for tiles in per_block]
         assert min(counts) >= 1 and max(counts) - min(counts) <= 1
         assert plan.smem_bytes <= kernels.SMEM_LIMIT and plan.groups == 1
-        assert plan.smem_bytes == kernels._smem_bytes_bf16(135, 27, plan.tile_t, chains, grad)
+        want = (kernels._smem_bytes_bf16(135, 27, plan.tile_t) if chains is None
+                else kernels._smem_bytes_chains(135, 27, chains, plan.tile_t, True, grad))
+        assert plan.smem_bytes == want
         want_y = (-(-kernels.mma_tiles(135, 27, chains) // (kernels.WARPS * kernels.WARP_TILES))
                   if chains else -(-kernels.du_tiles(135, 27) // kernels.THREADS))
         assert plan.grid_y == (want_y if grad else 1)
@@ -573,7 +578,8 @@ def test_bf16_launch_plan_flagship_and_limits():
     for N, C in ((27, 8), (46, 4), (64, 2), (10, 4), (16, 4)):
         assert kernels._k3_fits(5 * N, N, C)
         for grad in (False, True):
-            assert kernels._smem_bytes_bf16(5 * N, N, 8, C, grad) < kernels._smem_bytes(5 * N, N, 8, C)
+            bf16, f32 = (kernels._smem_bytes_chains(5 * N, N, C, 8, b, grad) for b in (True, False))
+            assert bf16 < f32
     assert kernels.launch_plan(600_000, 500, 100, H100_SMS, True, chains=1, x_bytes=2).groups == 1
     assert kernels.launch_plan(600_000, 500, 100, H100_SMS, True, x_bytes=2).groups == 2
     with pytest.raises(ValueError, match="K4-chains takes"):
@@ -582,6 +588,29 @@ def test_bf16_launch_plan_flagship_and_limits():
         kernels.launch_plan(1000, 1500, 300, H100_SMS, True, chains=1, x_bytes=2)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernels.launch_plan(1000, 15, 3, H100_SMS, True, x_bytes=8)
+
+
+def test_bf16_value_chains_plans():
+    """K4-fwd-chains, the value-only instance of the chain source on a bf16
+    X_f: at the flagship and configs 2-4 one slice, tiles of 8s up to the
+    unit cap (units of 32 bins × up to VALUE_TILES n-tiles, one a warp: the
+    flagship's 64 bins in four n-groups, config 2's 256 in one, configs 3
+    and 4's 128 in two), the shared memory the mirror's, K4-vg-chains' less
+    its bf16 dI copy; and every group that chain_groups gives at NB = 5N up
+    to N = 64 plans."""
+    cases = {(60_000, 135, 27, 4): 64, (240_000, 50, 10, 2): 256, (30_000, 50, 10, 4): 128,
+             (60_000, 80, 16, 4): 128}
+    for (T, NB, N, C), cap in cases.items():
+        plan = kernels.launch_plan(T, NB, N, H100_SMS, False, chains=C, x_bytes=2)
+        assert plan.grid_y == 1 and plan.groups == 1 and plan.tile_t % 8 == 0
+        assert kernels._unit_rows_cap(N, C, grad=False) == cap and plan.tile_t <= cap
+        vg = kernels._smem_bytes_chains(NB, N, C, plan.tile_t, True, grad=True)
+        dI = 4 * -(-(C * N) // 8) * 8 * kernels._odd4(-(-plan.tile_t // 16) * 8)
+        assert plan.smem_bytes == vg - dI <= kernels.SMEM_LIMIT
+    for n in range(1, 65):
+        for c in set(kernels.chain_groups(5 * n, n, 8)):
+            plan = kernels.launch_plan(1000, 5 * n, n, H100_SMS, False, chains=c, x_bytes=2)
+            assert plan.smem_bytes <= kernels.SMEM_LIMIT
 
 
 # --- CUDA: the four K4 kernels against their plain versions ---------------------

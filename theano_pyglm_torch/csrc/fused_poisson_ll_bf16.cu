@@ -8,10 +8,8 @@
 // and S in float32:
 //   K4-fwd        _fwd_kernel (:73) / _fwd_call's pallas_call (:195)      -> fused_ll_fwd_bf16
 //   K4-vg         _vg_kernel (:100) / _vg_call's pallas_call (:138)       -> fused_ll_vg_bf16
-// and the chain rules of its custom_vmap (plain XLA there):
-//   K4-fwd-chains _ll_chains_xla (:213), U rounded to bf16 (:216)         -> fused_ll_fwd_chains_bf16
-// (K4-vg-chains, the chain rule _vg_chains_xla (:164) with U (:171) and dI
-// (:179) rounded, is in fused_ll_vg_chains.cu).
+// (the chain rules of its custom_vmap, K4-fwd-chains and K4-vg-chains, are
+// in fused_ll_chains.cu).
 //
 // The two semantics of the JAX op on a bf16 design:
 //   one chain:  I = I_rest + f32(X_f)·U,        dU = f32(X_f)ᵀ·dI
@@ -21,21 +19,18 @@
 // float32, bf16(·) rounding to nearest even as JAX's astype does.
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM; 67 TFLOP/s for products with a
-// float32 operand, 989 TFLOP/s for bf16 × bf16) at the flagship shape
-// T=60,000, NB=135, N=27, each byte read or written once: K4-fwd moves
-// 29.2 MB (X_f 16.2, I_rest and S 6.5 each) in 8.7 us against 0.44 GFLOP in
-// 6.5 us: bytes. K4-vg adds dI_rest: 35.6 MB in 10.6 us against 0.87 GFLOP
-// in 13.1 us: the float32 operations. On 4 chains K4-fwd-chains moves
-// 48.6 MB in 14.5 us; its 1.75 GFLOP of bf16 products take under 2 us on the
-// tensor cores: bytes.
+// float32 operand) at the flagship shape T=60,000, NB=135, N=27, each byte
+// read or written once: K4-fwd moves 29.2 MB (X_f 16.2, I_rest and S 6.5
+// each) in 8.7 us against 0.44 GFLOP in 6.5 us: bytes. K4-vg adds dI_rest:
+// 35.6 MB in 10.6 us against 0.87 GFLOP in 13.1 us: the float32 operations.
 //
-// The design is K1/K2/K3's (csrc/fused_poisson_ll.cu, whose template this
+// The design is K1/K2's (csrc/fused_poisson_ll.cu, whose template this
 // file leaves as it is; the helpers both use are in fused_ll_common.cuh):
 // one persistent block of 256 threads per SM, launched cooperatively; each
 // tile's X_f, I_rest and S spans moved by TMA bulk copies onto an mbarrier
 // into the other of two stages while the current tile computes; every
 // block's partial row summed after a grid barrier in a fixed order (no
-// float atomics, bit-for-bit repeatable); a compensated value per chain.
+// float atomics, bit-for-bit repeatable); a compensated value.
 // What the bf16 design changes:
 // - X_f tiles arrive as bf16: half the bytes of the largest stream. A
 //   tile's span starts on 16 bytes when tile_t is a multiple of 8 (a row of
@@ -46,7 +41,7 @@
 //   would read back as bf16 values that may be Inf or NaN (NaN·0 is NaN).
 //   The tail of a span under 16 bytes (or a whole span whose source is not
 //   16-byte aligned) is copied by plain loads.
-// - One chain: a widened bf16 value is exactly a TF32 value, so
+// - A widened bf16 value is exactly a TF32 value, so
 //   f32(X)·U = X·tf32(U) + X·tf32(U − tf32(U)): 2 mma.sync.m16n8k8 per
 //   k-step and n-tile instead of 3xTF32's 3, with U kept in float32 in
 //   shared memory as K2 keeps it and split on the fly. (bf16 m16n8k16 with U
@@ -54,17 +49,6 @@
 //   tensor-core work for more splitting.) dU = f32(X)ᵀ·dI stays K2's
 //   float32 FMA product in register micro-tiles, X widened on load. Column
 //   groups of U (N ≥ 89 at NB = 5N) are taken as K1/K2 take them.
-// - Chains: U is rounded to bf16 once, in the prologue, and held transposed
-//   in shared memory, two k-values a 32-bit word, one column of all C·N
-//   columns per k_stride words (4 more than a multiple of 8, so a warp's
-//   B-fragment reads hit 32 distinct banks). The forward is
-//   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: one product per k16 step
-//   and n-tile, exact products accumulated in float32. X_f's A fragments
-//   are built from two 16-bit reads each (an X_f row of odd NB starts on an
-//   odd value). A group of one chain is this kernel too, so a chain axis of
-//   1 keeps the chain semantics.
-
-#include <cuda_bf16.h>
 
 #include "fused_ll_common.cuh"
 
@@ -77,29 +61,22 @@ namespace {
 constexpr int kScratch = kThreads * 8;  // words for joining partial sums (≥ kThreads · kMtN)
 constexpr int kMtM = 9, kMtN = 7;  // K4-vg's dU micro-tile (ops/kernels.py DU_TILE)
 constexpr int kMaxSlices = 32;  // threads that share one dU micro-tile, at most
-constexpr int kMaxChains = 8;  // ops/kernels.py MAX_CHAINS
 
 // Shared-memory layout, in 32-bit words, mirrored by ops/kernels.py
-// _smem_bytes_bf16, for C chains (one chain: C = 1) of a column group of W
-// neurons (W = N when one group holds them all; the chain kernels take one):
-//   U         one chain: float32 (ceil8(NB) × b_stride(W)), as K2 holds it;
-//             chains: bf16(U) transposed, column c·N + n in k_stride(KP/2)
-//             words of k-pairs (KP = ceil16(NB)), ceil32(C·N) columns
+// _smem_bytes_bf16, for a column group of W neurons (W = N when one group
+// holds them all):
+//   U         float32 (ceil8(NB) × b_stride(W)), as K2 holds it
 //   stage 0, 1  X_f (x_words: RT × NB bf16 values, ≥ 16 zero values), then
-//             C I_rest spans (NS each; K4-vg: dI in place), then S (NS)
+//             I_rest (NS; K4-vg: dI in place), then S (NS)
 //   scratch   (kScratch)
-__host__ __device__ constexpr int k_stride(int words) { return words + (12 - words % 8) % 8; }
 __host__ __device__ constexpr int x_words(int NB, int tile_t) {
     return ceil_to(ceil_to(tile_t, 16) * NB + 16, 8) / 2;
 }
-__host__ __device__ constexpr int stage_words(int NB, int W, int tile_t, int C) {
-    return x_words(NB, tile_t) + (C + 1) * n_span(W, tile_t);
+__host__ __device__ constexpr int stage_words(int NB, int W, int tile_t) {
+    return x_words(NB, tile_t) + 2 * n_span(W, tile_t);
 }
-__host__ __device__ constexpr int u_words(int NB, int W, int C, bool chains) {
-    return chains ? ceil_to(C * W, 32) * k_stride(ceil_to(NB, 16) / 2) : ceil_to(NB, 8) * b_stride(W);
-}
-size_t smem_bytes_bf16(int NB, int W, int tile_t, int C, bool chains) {
-    return ((size_t)u_words(NB, W, C, chains) + 2 * (size_t)stage_words(NB, W, tile_t, C) + kScratch) * 4;
+size_t smem_bytes_bf16(int NB, int W, int tile_t) {
+    return ((size_t)ceil_to(NB, 8) * b_stride(W) + 2 * (size_t)stage_words(NB, W, tile_t) + kScratch) * 4;
 }
 
 // Bytes of a span of n elements of `size` bytes at src that one bulk copy
@@ -111,55 +88,36 @@ __device__ __forceinline__ uint32_t bulk_bytes(const void* src, int n, int size)
 // A bf16 value's bits widened to float32's (exact; also exact as TF32).
 __device__ __forceinline__ uint32_t widen(uint16_t h) { return (uint32_t)h << 16; }
 __device__ __forceinline__ float widen_f(uint16_t h) { return __uint_as_float(widen(h)); }
-// Two bf16 values in one register, the lower index in the low half (the
-// mma fragments' order).
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) { return (uint32_t)lo | ((uint32_t)hi << 16); }
-__device__ __forceinline__ uint16_t bf16_bits(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
-
-// c += a·b for one m16n8k16 bf16 tile, float32 accumulation (pairs of bf16
-// a register: a = A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
-// b = B[2t..2t+1][g], B[2t+8..2t+9][g]; c as mma_tf32's).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The grid is (grid_x, grid_y · G): blockIdx.y = group · grid_y + dU slice.
 // part row b: K4-fwd [ll of each group, pad]; K4-vg [dU (NB·N row-major),
-// ll of each group, pad]; K4-fwd-chains (G = 1, W = N) [ll of each chain,
-// pad]. bar: 2 words, zeroed before the first call.
-template <bool kGrad, bool kChains>
+// ll of each group, pad]. bar: 2 words, zeroed before the first call. The
+// last parameter, always 1, is the chain count that an earlier chain
+// instance of this template took; it stays, unread, so that K4-fwd's and
+// K4-vg's machine code (the parameters' layout) does not change.
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ u,
                     const float* __restrict__ i_rest, const float* __restrict__ s,
                     float* __restrict__ d_irest, float* __restrict__ part, float* __restrict__ out,
                     unsigned* __restrict__ bar, int T, int NB, int N, int W, int tile_t, float dt,
                     float log_dt, int C) {
-    constexpr int NQ = kChains ? kMaxChains : 1;  // values a thread keeps: one per chain
     extern __shared__ __align__(16) float smem[];
     __shared__ __align__(8) uint64_t s_bar[2];  // a stage's bulk copies have landed
-    const int nch = kChains ? C : 1;
-    const int CN = nch * N;  // columns of U, I and dU in all
-    const int G = kChains ? 1 : (N + W - 1) / W, YS = gridDim.y / G;
+    const int G = (N + W - 1) / W, YS = gridDim.y / G;
     const int grp = blockIdx.y / YS, ys = blockIdx.y - grp * YS;
-    const int c0 = grp * W, nc = kChains ? CN : min(W, N - c0);  // this block's columns
-    const bool whole = kChains || nc == N;  // one group: I_rest and S tiles are contiguous
-    const int rs = kChains ? N : nc;        // a row's words in an I_rest or S span
+    const int c0 = grp * W, nc = min(W, N - c0);  // this block's columns
+    const bool whole = nc == N;  // one group: I_rest and S tiles are contiguous
+    const int rs = nc;           // a row's words in an I_rest or S span
     const int RT = ceil_to(tile_t, 16);
-    const int KP = ceil_to(NB, kChains ? 16 : 8);  // the forward's k extent
-    const int BS = b_stride(W);                     // one chain: U's row stride
-    const int KS = k_stride(ceil_to(NB, 16) / 2);   // chains: a bf16(U) column's words
+    const int KP = ceil_to(NB, 8);  // the forward's k extent
+    const int BS = b_stride(W);     // U's row stride
     const int XW = x_words(NB, tile_t), NS = n_span(W, tile_t);
-    const int SW = stage_words(NB, W, tile_t, nch);
-    const int UW = u_words(NB, W, nch, kChains);
+    const int SW = stage_words(NB, W, tile_t);
+    const int UW = ceil_to(NB, 8) * BS;
     const int NT = (nc + 7) >> 3;  // n-tiles of 8 columns
     const int NG = (NT + 3) >> 2;  // forward n-groups of 4 n-tiles
     float* s_u = smem;
-    uint32_t* s_ub = reinterpret_cast<uint32_t*>(smem);
     float* s_stage = smem + UW;
     float* s_join = s_stage + 2 * (size_t)SW;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -181,13 +139,13 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
     }
     __syncthreads();
 
-    // A tile's X_f span (bf16), its I_rest spans (chains: one a chain) and
-    // its S span: thread 0 moves each contiguous span with one TMA bulk copy
+    // A tile's X_f span (bf16), its I_rest span and its S span: thread 0
+    // moves each contiguous span with one TMA bulk copy
     // onto the stage's mbarrier; the threads copy what a bulk copy cannot
     // take (an X_f tail by plain loads, a float32 tail by cp.async). A column
     // group's I_rest and S rows lie N apart: cp.async takes them a word at a
     // time.
-    const int nf = kChains ? C + 1 : 2;  // float32 spans: I_rest (C of them), then S
+    const int nf = 2;  // float32 spans: I_rest, then S
     auto issue = [&](int tile, int st) {
         const int t0 = tile * tile_t, rows = min(tile_t, T - t0);
         float* base = s_stage + (size_t)st * SW;
@@ -236,23 +194,10 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
             }
         }
     };
-    if constexpr (kChains) {
-        // bf16(U), rounded once: column c·N + n holds U[c, :, n] as k-pairs
-        const int KH = ceil_to(NB, 16) / 2;
-        for (int e = tid; e < CN * KH; e += kThreads) {
-            const int col = e / KH, p = e - col * KH;
-            const int ch = col / N, m = 2 * p;
-            const float* uc = u + (size_t)ch * NB * N + (col - ch * N);
-            const uint16_t lo = m < NB ? bf16_bits(uc[(size_t)m * N]) : 0;
-            const uint16_t hi = m + 1 < NB ? bf16_bits(uc[(size_t)(m + 1) * N]) : 0;
-            s_ub[(size_t)col * KS + p] = pack(lo, hi);
-        }
-    } else {
-        // the block's columns of U into rows of BS words, 4 bytes a thread
-        for (int e = tid; e < NB * nc; e += kThreads) {
-            const int m = e / nc, col = e - m * nc;
-            cp_async4(s_u + m * BS + col, u + (size_t)m * N + c0 + col);
-        }
+    // the block's columns of U into rows of BS words, 4 bytes a thread
+    for (int e = tid; e < NB * nc; e += kThreads) {
+        const int m = e / nc, col = e - m * nc;
+        cp_async4(s_u + m * BS + col, u + (size_t)m * N + c0 + col);
     }
     cp_async_commit();
     issue(blockIdx.x, 0);
@@ -269,17 +214,15 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
     const int item = ys * kThreads + item_l;
     const int mg = owns_du ? item / ngc : 0;
     const int n0d = owns_du ? (item % ngc) * kMtN : 0;
-    float du[kChains ? 1 : kMtM][kChains ? 1 : kMtN];
+    float du[kMtM][kMtN];
 #pragma unroll
-    for (int i = 0; i < (kChains ? 1 : kMtM); ++i)
+    for (int i = 0; i < kMtM; ++i)
 #pragma unroll
-        for (int j = 0; j < (kChains ? 1 : kMtN); ++j) du[i][j] = 0.f;
+        for (int j = 0; j < kMtN; ++j) du[i][j] = 0.f;
 
-    // the value (of each chain): each forward unit's terms a thread summed
-    // into part, the parts added into ll with Kahan's compensation (ll_c)
-    float ll[NQ], ll_c[NQ];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) ll[q] = ll_c[q] = 0.f;
+    // the value: each forward unit's terms a thread summed into part, the
+    // parts added into ll with Kahan's compensation (ll_c)
+    float ll = 0.f, ll_c = 0.f;
     int k = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++k) {
         const int next = tile + gridDim.x;
@@ -293,7 +236,7 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
         const int rows = min(tile_t, T - t0);
         const uint16_t* sx = reinterpret_cast<const uint16_t*>(s_stage + (size_t)(k & 1) * SW);
         float* sir = s_stage + (size_t)(k & 1) * SW + XW;  // I_rest, then (vg) dI in place
-        const float* ssp = sir + nch * NS;
+        const float* ssp = sir + NS;
 
         // forward: unit = (16 bins, 4 n-tiles of 8 columns)
         for (int unit = warp; unit < (RT >> 4) * NG; unit += kWarps) {
@@ -304,74 +247,45 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
             for (int j = 0; j < 4; ++j)
 #pragma unroll
                 for (int c = 0; c < 4; ++c) acc_lo[j][c] = acc_hi[j][c] = 0.f;
-            if constexpr (kChains) {
-                // X_f · bf16(U): one bf16 m16n8k16 product per k-step and
-                // n-tile. n-tiles past NT read zero columns of U.
-                const uint16_t* x0 = sx + (size_t)(r0 + g) * NB + 2 * t;
-                const uint16_t* x8 = x0 + 8 * NB;
-                const uint32_t* ub = s_ub + (size_t)(nt0 * 8 + g) * KS + t;
-                for (int kk = 0; kk < KP; kk += 16) {
-                    const uint32_t a[4] = {pack(x0[kk], x0[kk + 1]), pack(x8[kk], x8[kk + 1]),
-                                           pack(x0[kk + 8], x0[kk + 9]), pack(x8[kk + 8], x8[kk + 9])};
+            // f32(X_f) · U = X_f·tf32(U) + X_f·tf32(U − tf32(U)): the widened
+            // bf16 values are exact TF32 operands. n-tiles past NT multiply
+            // whatever follows U's last columns and are never read.
+            const uint16_t* xa = sx + (size_t)(r0 + g) * NB + t;
+            const float* ub = s_u + t * BS + nt0 * 8 + g;
+            for (int kk = 0; kk < KP; kk += 8) {
+                const uint32_t a[4] = {widen(xa[kk]), widen(xa[8 * NB + kk]), widen(xa[kk + 4]),
+                                       widen(xa[8 * NB + kk + 4])};
+                uint32_t bb[4][2], bs[4][2];
 #pragma unroll
-                    for (int j = 0; j < 4; ++j)
-                        mma_bf16(acc_hi[j], a, ub[j * 8 * KS + (kk >> 1)], ub[j * 8 * KS + (kk >> 1) + 4]);
+                for (int j = 0; j < 4; ++j) {
+                    split_tf32(ub[kk * BS + 8 * j], bb[j][0], bs[j][0]);
+                    split_tf32(ub[(kk + 4) * BS + 8 * j], bb[j][1], bs[j][1]);
                 }
-            } else {
-                // f32(X_f) · U = X_f·tf32(U) + X_f·tf32(U − tf32(U)): the
-                // widened bf16 values are exact TF32 operands. n-tiles past
-                // NT multiply whatever follows U's last columns and are
-                // never read.
-                const uint16_t* xa = sx + (size_t)(r0 + g) * NB + t;
-                const float* ub = s_u + t * BS + nt0 * 8 + g;
-                for (int kk = 0; kk < KP; kk += 8) {
-                    const uint32_t a[4] = {widen(xa[kk]), widen(xa[8 * NB + kk]), widen(xa[kk + 4]),
-                                           widen(xa[8 * NB + kk + 4])};
-                    uint32_t bb[4][2], bs[4][2];
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        split_tf32(ub[kk * BS + 8 * j], bb[j][0], bs[j][0]);
-                        split_tf32(ub[(kk + 4) * BS + 8 * j], bb[j][1], bs[j][1]);
-                    }
+                for (int j = 0; j < 4; ++j) mma_tf32(acc_lo[j], a, bs[j][0], bs[j][1]);
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) mma_tf32(acc_lo[j], a, bs[j][0], bs[j][1]);
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) mma_tf32(acc_hi[j], a, bb[j][0], bb[j][1]);
-                }
+                for (int j = 0; j < 4; ++j) mma_tf32(acc_hi[j], a, bb[j][0], bb[j][1]);
             }
-            float part_v[NQ];
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) part_v[q] = 0.f;
+            float part_v = 0.f;
 #pragma unroll
             for (int j = 0; j < 4; ++j)
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                     const int r = r0 + g + ((c >> 1) << 3), col = (nt0 + j) * 8 + 2 * t + (c & 1);
                     if (r < rows && col < nc) {  // the ragged tile, the padded columns
-                        const int ch = kChains ? col / N : 0;
-                        const int e = ch * NS + r * rs + (col - ch * N);
+                        const int e = r * rs + col;
                         const float i_raw = sir[e] + (acc_hi[j][c] + acc_lo[j][c]);
                         const float I = fminf(fmaxf(i_raw, -EXP_CLIP), EXP_CLIP);
                         const float rate_dt = expf(I) * dt;
-                        const float spikes = ssp[e - ch * NS];
-                        const float term = spikes * (I + log_dt) - rate_dt;
-                        if (kChains) {
-#pragma unroll
-                            for (int q = 0; q < NQ; ++q)
-                                if (q == ch) part_v[q] += term;
-                        } else {
-                            part_v[0] += term;
-                        }
+                        const float spikes = ssp[e];
+                        part_v += spikes * (I + log_dt) - rate_dt;
                         if (kGrad)  // the clip's gradient is 0 outside the active range
                             sir[e] = fabsf(i_raw) < EXP_CLIP ? spikes - rate_dt : 0.f;
                     }
                 }
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) {
-                const float y = part_v[q] - ll_c[q], sum = ll[q] + y;
-                ll_c[q] = (sum - ll[q]) - y;
-                ll[q] = sum;
-            }
+            const float y = part_v - ll_c, sum = ll + y;
+            ll_c = (sum - ll) - y;
+            ll = sum;
         }
 
         if (kGrad) {
@@ -396,19 +310,18 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
 #pragma unroll
                     for (int j = 0; j < kMtN; ++j) dv[j] = dp[r * rs + j];
 #pragma unroll
-                    for (int i = 0; i < (kChains ? 1 : kMtM); ++i)
+                    for (int i = 0; i < kMtM; ++i)
 #pragma unroll
-                        for (int j = 0; j < (kChains ? 1 : kMtN); ++j) du[i][j] = fmaf(xv[i], dv[j], du[i][j]);
+                        for (int j = 0; j < kMtN; ++j) du[i][j] = fmaf(xv[i], dv[j], du[i][j]);
                 }
             }
         }
         __syncthreads();  // readers of this stage are done before it is refilled
     }
 
-    // -- this block's part of its partial row, width ceil4(NB·N + V) with
-    // dU, else ceil4(V), for V values: one per group (one chain) or per chain
-    const int n_vals = kChains ? nch : G;
-    const int ll_off = kGrad ? NB * CN : 0, width = ll_off + n_vals;
+    // -- this block's part of its partial row, width ceil4(NB·N + G) with
+    // dU, else ceil4(G): a value per group
+    const int ll_off = kGrad ? NB * N : 0, width = ll_off + G;
     const int w4 = ceil_to(width, 4) >> 2;
     float* row = part + (size_t)blockIdx.x * w4 * 4;
     if constexpr (kGrad) {
@@ -433,12 +346,8 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
                 for (int j = 0; j < kMtN; ++j)
                     if (mg + i * MG < NB && n0d + j < nc) row[(mg + i * MG) * N + c0 + n0d + j] = du[i][j];
     }
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-        if (q >= (kChains ? nch : 1)) break;
-        const float v = block_sum(ll[q]);
-        if (lead_y && tid == 0) row[ll_off + (kChains ? q : grp)] = v;
-    }
+    const float v = block_sum(ll);
+    if (lead_y && tid == 0) row[ll_off + grp] = v;
 
     // -- after a grid barrier, every block sums a slice of the columns over
     // the partial rows, in a fixed order; with column groups, after a second
@@ -455,35 +364,34 @@ fused_ll_bf16_tiles(const uint16_t* __restrict__ x_f, const float* __restrict__ 
     }
 }
 
-template <bool kGrad, bool kChains>
+template <bool kGrad>
 cudaError_t launch(const void* x_f, const float* u, const float* i_rest, const float* s,
                    float* d_irest, float* part, float* out, unsigned* bar, int T, int NB, int N,
-                   int C, int W, int tile_t, int grid_x, int grid_y, int smem_bytes, int device,
+                   int W, int tile_t, int grid_x, int grid_y, int smem_bytes, int device,
                    float dt, float log_dt, cudaStream_t stream) {
     static int attr_bytes[kMaxDevices];  // the shared-memory attribute set so far, per device
     if (device < 0 || device >= kMaxDevices || tile_t % 8 != 0) return cudaErrorInvalidValue;
-    // one chain: a column group is all N columns, or whole n-tiles of 8;
-    // chains (value only): one group of 1 ≤ C ≤ kMaxChains chains
-    if (kChains ? (W != N || C < 1 || C > kMaxChains) : (C != 1 || W < 1 || W > N || (W < N && W % 8 != 0)))
-        return cudaErrorInvalidValue;
-    if ((size_t)smem_bytes != smem_bytes_bf16(NB, W, tile_t, C, kChains)) return cudaErrorInvalidValue;
+    // a column group is all N columns, or whole n-tiles of 8
+    if (W < 1 || W > N || (W < N && W % 8 != 0)) return cudaErrorInvalidValue;
+    if ((size_t)smem_bytes != smem_bytes_bf16(NB, W, tile_t)) return cudaErrorInvalidValue;
     const int du_tiles = ((NB + kMtM - 1) / kMtM) * ((W + kMtN - 1) / kMtN);
     if (kGrad ? grid_y * kThreads < du_tiles : grid_y != 1) return cudaErrorInvalidValue;
-    const int G = kChains ? 1 : (N + W - 1) / W;
+    const int G = (N + W - 1) / W;
     int current = -1;
     cudaError_t err = cudaGetDevice(&current);
     if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     if (attr_bytes[device] < smem_bytes) {
-        err = cudaFuncSetAttribute(fused_ll_bf16_tiles<kGrad, kChains>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        err = cudaFuncSetAttribute(fused_ll_bf16_tiles<kGrad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_bytes);
         if (err != cudaSuccess) return err;
         attr_bytes[device] = smem_bytes;
     }
     const uint16_t* x = static_cast<const uint16_t*>(x_f);
+    int C = 1;  // see the kernel
     void* args[] = {&x, &u, &i_rest, &s, &d_irest, &part, &out, &bar,
                     &T, &NB, &N, &W, &tile_t, &dt, &log_dt, &C};
-    return cudaLaunchCooperativeKernel((const void*)fused_ll_bf16_tiles<kGrad, kChains>,
+    return cudaLaunchCooperativeKernel((const void*)fused_ll_bf16_tiles<kGrad>,
                                        dim3(grid_x, grid_y * G), dim3(kThreads), args,
                                        (size_t)smem_bytes, stream);
 }
@@ -497,7 +405,7 @@ extern "C" int fused_ll_fwd_bf16(const void* x_f, const float* u, const float* i
                                  const float* s, float* part, float* out, unsigned* bar, int T,
                                  int NB, int N, int W, int tile_t, int grid_x, int grid_y,
                                  int smem_bytes, int device, float dt, float log_dt, void* stream) {
-    return (int)launch<false, false>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, 1, W,
+    return (int)launch<false>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, W,
                                      tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
                                      (cudaStream_t)stream);
 }
@@ -508,19 +416,7 @@ extern "C" int fused_ll_vg_bf16(const void* x_f, const float* u, const float* i_
                                 unsigned* bar, int T, int NB, int N, int W, int tile_t, int grid_x,
                                 int grid_y, int smem_bytes, int device, float dt, float log_dt,
                                 void* stream) {
-    return (int)launch<true, false>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, 1, W,
-                                    tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
-                                    (cudaStream_t)stream);
-}
-
-// K4-fwd-chains: u (C, NB, N), i_rest (C, T, N), a bf16 x_f (T, NB) and s
-// (T, N) shared, 1 ≤ C ≤ 8; out[0 : C] = the chains' ll.
-extern "C" int fused_ll_fwd_chains_bf16(const void* x_f, const float* u, const float* i_rest,
-                                        const float* s, float* part, float* out, unsigned* bar,
-                                        int T, int NB, int N, int C, int tile_t, int grid_x,
-                                        int grid_y, int smem_bytes, int device, float dt,
-                                        float log_dt, void* stream) {
-    return (int)launch<false, true>(x_f, u, i_rest, s, nullptr, part, out, bar, T, NB, N, C, N,
+    return (int)launch<true>(x_f, u, i_rest, s, d_irest, part, out, bar, T, NB, N, W,
                                     tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt,
                                     (cudaStream_t)stream);
 }

@@ -1,16 +1,15 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
 The sources in ``theano_pyglm_torch/csrc/`` have a plain C interface:
-``fused_poisson_ll.cu`` (K1, K2, K3-fwd), ``fused_poisson_ll_bf16.cu``
-(K4-fwd, K4-vg, K4-fwd-chains: the bfloat16 design) and
-``fused_ll_vg_chains.cu`` (K3-vg and K4-vg-chains, the chain-batched
-value-and-gradient pair), all including ``fused_ll_common.cuh``, the helpers
-they share. At first use :func:`build_all` compiles each with nvcc for
+``fused_poisson_ll.cu`` (K1, K2), ``fused_poisson_ll_bf16.cu`` (K4-fwd,
+K4-vg: the bfloat16 design) and ``fused_ll_chains.cu`` (the four
+chain-batched kernels: K3-fwd, K3-vg, K4-fwd-chains, K4-vg-chains), all
+including ``fused_ll_common.cuh``, the helpers they share. At first use :func:`build_all` compiles each with nvcc for
 Hopper (``sm_90a``), one process per source, all started together, into a
 shared library under ``theano_pyglm_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source, the header and the flags so
 a stale build is never loaded; :func:`load_fused_ll`,
-:func:`load_fused_ll_bf16` and :func:`load_fused_ll_vg_chains` open them
+:func:`load_fused_ll_bf16` and :func:`load_fused_ll_chains` open them
 with ctypes. The clip constant comes from
 :mod:`theano_pyglm_torch.ops.clipping` as ``-DEXP_CLIP``.
 
@@ -32,20 +31,20 @@ from theano_pyglm_torch.ops.clipping import EXP_CLIP
 __all__ = [
     "SOURCE",
     "SOURCE_BF16",
-    "SOURCE_VG_CHAINS",
+    "SOURCE_CHAINS",
     "BUILD_DIR",
     "nvcc_flags",
     "build_all",
     "load_fused_ll",
     "load_fused_ll_bf16",
-    "load_fused_ll_vg_chains",
+    "load_fused_ll_chains",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fused_poisson_ll.cu"
 SOURCE_BF16 = _PKG / "csrc" / "fused_poisson_ll_bf16.cu"
-SOURCE_VG_CHAINS = _PKG / "csrc" / "fused_ll_vg_chains.cu"
-SOURCES = (SOURCE, SOURCE_BF16, SOURCE_VG_CHAINS)
+SOURCE_CHAINS = _PKG / "csrc" / "fused_ll_chains.cu"
+SOURCES = (SOURCE, SOURCE_BF16, SOURCE_CHAINS)
 HEADER = _PKG / "csrc" / "fused_ll_common.cuh"  # included by every source
 BUILD_DIR = _PKG / "_build"
 
@@ -110,9 +109,9 @@ def build_all(sources=None) -> dict:
     return {src: _finish(*job) for src, job in jobs.items()}
 
 
-ENTRY_POINTS = {SOURCE: ("fwd", "vg", "fwd_chains"),
-                SOURCE_BF16: ("fwd_bf16", "vg_bf16", "fwd_chains_bf16"),
-                SOURCE_VG_CHAINS: ("vg_chains", "vg_chains_bf16")}
+ENTRY_POINTS = {SOURCE: ("fwd", "vg"),
+                SOURCE_BF16: ("fwd_bf16", "vg_bf16"),
+                SOURCE_CHAINS: ("fwd_chains", "vg_chains", "fwd_chains_bf16", "vg_chains_bf16")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,17 +134,18 @@ def _load(source: Path) -> ctypes.CDLL:
 
 
 def load_fused_ll() -> ctypes.CDLL:
-    """The K1, K2 and K3-fwd library (float32 X_f)."""
+    """The K1 and K2 library (float32 X_f)."""
     return _load(SOURCE)
 
 
 def load_fused_ll_bf16() -> ctypes.CDLL:
-    """The K4-fwd, K4-vg and K4-fwd-chains library (bfloat16 X_f): their
-    float32 counterparts' entry points with ``_bf16`` names."""
+    """The K4-fwd and K4-vg library (bfloat16 X_f): K1's and K2's entry
+    points with ``_bf16`` names."""
     return _load(SOURCE_BF16)
 
 
-def load_fused_ll_vg_chains() -> ctypes.CDLL:
-    """The K3-vg and K4-vg-chains library (``fused_ll_vg_chains`` and
-    ``fused_ll_vg_chains_bf16``)."""
-    return _load(SOURCE_VG_CHAINS)
+def load_fused_ll_chains() -> ctypes.CDLL:
+    """The library of the four chain-batched kernels, values and gradients
+    alike (``fused_ll_fwd_chains``, ``fused_ll_vg_chains`` and their
+    ``_bf16`` names)."""
+    return _load(SOURCE_CHAINS)

@@ -27,9 +27,9 @@ reaches under ``vmap`` (plain XLA there, not ``pallas_call``s):
 
 K3 is a chain dimension of K1/K2's columns: column c·N + n reads
 U[c, :, n], I_rest[c, :, n] and S[:, n], so one tile of X_f and S feeds every
-chain. K3-fwd is an instance of K1/K2's source; K3-vg has a source of its
-own, ``csrc/fused_ll_vg_chains.cu``, with both products on the tensor cores
-(see the source notes).
+chain. The four chain kernels (K3-fwd, K3-vg and their bfloat16 instances)
+are one template in ``csrc/fused_ll_chains.cu``, built into one library:
+the value kernels are its value-only instances (see the source notes).
 
 Each wrapper launches its kernel for CUDA tensors and adds one to its entry
 of :data:`LAUNCHES`; for CPU tensors it runs the plain torch version beside
@@ -65,12 +65,12 @@ float32, and the call has the JAX op's two semantics. Without a chain axis
 f32(X_f)·U and dU = f32(X_f)ᵀ·dI. With a chain axis (the ``custom_vmap``
 rules) U and dI are rounded to bfloat16 (to nearest even) for the products:
 I = I_rest + X_f·bf16(U) and dU = X_fᵀ·bf16(dI), accumulated in float32,
-dI_rest in float32. The four kernels of ``csrc/fused_poisson_ll_bf16.cu``
-(K4) carry them: K4-fwd and K4-vg for one chain, K4-fwd-chains for every
-group of chains, a group of one included, so that a chain axis of 1 keeps
-the chain semantics; K4-vg-chains, the gradient of every group, is the
-bfloat16 instance of K3-vg's source. The plain versions widen a
-bfloat16 X_f exactly to U's dtype and, on a chain axis, round U and dI.
+dI_rest in float32. Four kernels (K4) carry them: K4-fwd and K4-vg for one
+chain (``csrc/fused_poisson_ll_bf16.cu``), K4-fwd-chains and K4-vg-chains
+for every group of chains, a group of one included, so that a chain axis of
+1 keeps the chain semantics (the bfloat16 instances of the chain source).
+The plain versions widen a bfloat16 X_f exactly to U's dtype and, on a
+chain axis, round U and dI.
 """
 
 from __future__ import annotations
@@ -119,6 +119,7 @@ SMEM_LIMIT = 227 * 1024 - 256  # a Hopper block's 227 KB, less the kernels' stat
 MAX_CHAINS = 8  # K3's and K4-chains' chains, at most (kMaxChains in the sources)
 WARP_TILES = 16  # K3-vg, K4-vg-chains: dU mma tiles a warp holds, at most (kWarpTiles)
 UNIT_TILES = 8  # K3-vg, K4-vg-chains: n-tiles of a forward unit, at most (kUnitTiles)
+VALUE_TILES = 4  # K3-fwd, K4-fwd-chains: n-tiles of a forward unit of two m-tiles, at most (kValueTiles)
 # Launches of each kernel on a CUDA device; the CPU path does not count.
 # K4 (a bfloat16 X_f) counts under the float32 kernel's key with "_bf16".
 LAUNCHES = {"fwd": 0, "vg": 0, "fwd_chains": 0, "vg_chains": 0,
@@ -201,67 +202,67 @@ def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _smem_bytes(NB: int, N: int, tile_t: int, chains: int = 1) -> int:
-    """Mirror of smem_bytes_for in ``fused_poisson_ll.cu``: U, two stages
-    of the X_f, I_rest and S tiles, and a join scratch, in 32-bit words, for
-    a block that holds N columns (a column group's width) of each of
-    ``chains`` chains (K3-fwd; 1 for K1/K2)."""
-    cols = _ceil_to(chains * N, 8)
-    bs = cols + (0 if cols % 16 else 8)  # b_stride of the C·N columns
-    ns = _ceil_to(tile_t * N, 4) + 8  # n_span
-    stage = _ceil_to(tile_t, 16) * NB + (chains + 1) * ns
-    return 4 * (_ceil_to(NB, 8) * bs + 2 * stage + 8 * THREADS)
+def _b_stride(cols: int) -> int:
+    """U's row stride for ``cols`` columns: ceil8, ≡ 8 (mod 16) words
+    (b_stride in ``fused_ll_common.cuh``)."""
+    cols = _ceil_to(cols, 8)
+    return cols + (0 if cols % 16 else 8)
+
+
+def _n_span(N: int, tile_t: int) -> int:
+    """An I_rest or S span of a tile, 8 words past its rows (n_span)."""
+    return _ceil_to(tile_t * N, 4) + 8
+
+
+def _smem_bytes(NB: int, N: int, tile_t: int) -> int:
+    """Mirror of smem_bytes_for in ``fused_poisson_ll.cu`` (K1/K2): U, two
+    stages of the X_f, I_rest and S tiles, and a join scratch, in 32-bit
+    words, for a block that holds N columns (a column group's width)."""
+    stage = _ceil_to(tile_t, 16) * NB + 2 * _n_span(N, tile_t)
+    return 4 * (_ceil_to(NB, 8) * _b_stride(N) + 2 * stage + 8 * THREADS)
 
 
 def _odd4(words: int) -> int:
     """The least stride of at least ``words`` 32-bit words that is 4 more
     than a multiple of 8: eight such rows start in eight distinct groups of
-    four banks (k_stride in the bf16 source)."""
+    four banks (k_stride in the chain source)."""
     return words + (12 - words % 8) % 8
 
 
-def _smem_bytes_bf16(NB: int, N: int, tile_t: int, chains=None, grad: bool = False) -> int:
-    """The shared memory of a K4 call, in bytes. K4-fwd, K4-vg and
-    K4-fwd-chains: the mirror of smem_bytes_bf16 in
-    ``fused_poisson_ll_bf16.cu``, in 32-bit words: U, two stages of the
-    bfloat16 X_f tile (its rows, then at least 16 zero values that the
-    k-steps past the last row's NB read) and the I_rest and S spans, and
-    the join scratch. ``chains`` None: K4 on N columns (a column group's
-    width), U in float32 rows as K1/K2 hold it; else K4-fwd-chains on that
-    many chains, bf16(U) transposed, two k-values a word. K4-vg-chains
-    (``chains`` and ``grad``): :func:`_smem_bytes_vg_chains`."""
-    if chains is not None and grad:
-        return _smem_bytes_vg_chains(NB, N, chains, tile_t, bf16=True)
-    C = 1 if chains is None else chains
-    RT = _ceil_to(tile_t, 16)
-    stage = _ceil_to(RT * NB + 16, 8) // 2 + (C + 1) * (_ceil_to(tile_t * N, 4) + 8)
-    if chains is None:
-        cols = _ceil_to(N, 8)
-        u_words = _ceil_to(NB, 8) * (cols + (0 if cols % 16 else 8))
-    else:
-        u_words = _ceil_to(C * N, 32) * _odd4(_ceil_to(NB, 16) // 2)
-    return 4 * (u_words + 2 * stage + 8 * THREADS)
+def _x_words_bf16(NB: int, tile_t: int) -> int:
+    """A stage's bfloat16 X_f region in 32-bit words: the tile's RT =
+    ceil16(tile_t) rows, then at least 16 values that the k-steps past the
+    last row's NB read."""
+    return _ceil_to(_ceil_to(tile_t, 16) * NB + 16, 8) // 2
 
 
-def _smem_bytes_vg_chains(NB: int, N: int, C: int, tile_t: int, bf16: bool) -> int:
-    """Mirror of smem_bytes_vg_chains in ``fused_ll_vg_chains.cu`` (K3-vg,
-    K4-vg-chains on C chains), in 32-bit words: U (K3-vg float32 rows of
-    b_stride(C·N); K4 bf16(U) transposed in k-pairs, ceil8(C·N) columns),
-    two stages of the X_f tile (K4: at least 16 zero values after its rows)
-    and the C I_rest spans and the S span, and K4's bfloat16 copy of dI
-    (ceil8(C·N) columns of bin pairs). No join scratch: after the tiles the
-    whole region is the cross-block sums' scratch."""
+def _smem_bytes_bf16(NB: int, N: int, tile_t: int) -> int:
+    """Mirror of smem_bytes_bf16 in ``fused_poisson_ll_bf16.cu`` (K4-fwd,
+    K4-vg), in 32-bit words: U in float32 rows as K1/K2 hold it, two stages
+    of the bfloat16 X_f tile and the I_rest and S spans, and the join
+    scratch, for N columns (a column group's width)."""
+    stage = _x_words_bf16(NB, tile_t) + 2 * _n_span(N, tile_t)
+    return 4 * (_ceil_to(NB, 8) * _b_stride(N) + 2 * stage + 8 * THREADS)
+
+
+def _smem_bytes_chains(NB: int, N: int, C: int, tile_t: int, bf16: bool, grad: bool) -> int:
+    """Mirror of smem_bytes_chains in ``fused_ll_chains.cu`` (K3-fwd, K3-vg,
+    K4-fwd-chains, K4-vg-chains on C chains), in 32-bit words: U (K3
+    float32 rows of b_stride(C·N); K4 bf16(U) transposed in k-pairs,
+    ceil8(C·N) columns), two stages of the X_f tile (K4: at least 16
+    values after its rows) and the C I_rest spans and the S span, and
+    K4-vg-chains' bfloat16 copy of dI (ceil8(C·N) columns of bin pairs). No
+    join scratch: after the tiles the whole region is the cross-block sums'
+    scratch."""
     CN, RT = C * N, _ceil_to(tile_t, 16)
-    ns = _ceil_to(tile_t * N, 4) + 8  # n_span
     if bf16:
         u_words = _ceil_to(CN, 8) * _odd4(_ceil_to(NB, 16) // 2)
-        x_words = _ceil_to(RT * NB + 16, 8) // 2
-        di_words = _ceil_to(CN, 8) * _odd4(RT // 2)
+        x_words = _x_words_bf16(NB, tile_t)
+        di_words = _ceil_to(CN, 8) * _odd4(RT // 2) if grad else 0
     else:
-        cols = _ceil_to(CN, 8)
-        u_words = _ceil_to(NB, 8) * (cols + (0 if cols % 16 else 8))
+        u_words = _ceil_to(NB, 8) * _b_stride(CN)
         x_words, di_words = RT * NB, 0
-    return 4 * (u_words + 2 * (x_words + (C + 1) * ns) + di_words)
+    return 4 * (u_words + 2 * (x_words + (C + 1) * _n_span(N, tile_t)) + di_words)
 
 
 # K2's dU micro-tile, rows × columns (kMtM, kMtN in the source): at the
@@ -285,7 +286,7 @@ def mma_tiles(NB: int, N: int, chains: int) -> int:
 def _work_warps(items: int) -> int:
     """The warps that share a grid_y slice's dU items: the fewest of 1, 2,
     4, 8 whose runs hold at most WARP_TILES items (work_warps in
-    ``fused_ll_vg_chains.cu``)."""
+    ``fused_ll_chains.cu``)."""
     return next(w for w in (1, 2, 4) if items <= w * WARP_TILES) if items <= 4 * WARP_TILES else WARPS
 
 
@@ -321,13 +322,14 @@ def vg_chains_items(NB: int, N: int, chains: int, grid_y: int) -> list:
     return runs
 
 
-def _unit_rows_cap(N: int, C: int) -> int:
-    """K3-vg's and K4-vg-chains' widest tile: forward units are 16 bins ×
-    up to UNIT_TILES n-tiles, the C·N columns in NGF n-groups; at most
-    16·(WARPS // NGF) bins keep each warp at one unit a tile where NGF ≤
-    WARPS."""
-    ngf = -(-(-(-(C * N) // 8)) // UNIT_TILES)
-    return 16 * max(1, WARPS // ngf)
+def _unit_rows_cap(N: int, C: int, grad: bool = True) -> int:
+    """The chain kernels' widest tile: forward units are 16 bins × up to
+    UNIT_TILES n-tiles (the value kernels': 32 bins × up to VALUE_TILES),
+    the C·N columns in NGF n-groups; at most rows·(WARPS // NGF) bins keep
+    each warp at one unit a tile where NGF ≤ WARPS."""
+    rows, width = (16, UNIT_TILES) if grad else (32, VALUE_TILES)
+    ngf = -(-(-(-(C * N) // 8)) // width)
+    return rows * max(1, WARPS // ngf)
 
 
 def _group_cols(NB: int, N: int, fits) -> int:
@@ -346,10 +348,19 @@ def _group_cols(NB: int, N: int, fits) -> int:
     )
 
 
+# Shared memory that chain_groups keeps free beside a group (bytes): the 8 KB
+# join scratch of the first chain kernels' layout. With it the groups, and
+# with them the sums of every chain-batched call, stay those of that layout.
+GROUP_SPARE = 4 * 8 * THREADS
+
+
 def _k3_fits(NB: int, N: int, C: int) -> bool:
     """K3 takes C chains at (NB, N): 2 ≤ C ≤ MAX_CHAINS, and all C·N columns
-    of U and C I_rest spans fit beside a 4-bin tile."""
-    return 2 <= C <= MAX_CHAINS and _smem_bytes(NB, N, 4, C) <= SMEM_LIMIT
+    of U and C I_rest spans fit beside a 4-bin tile with GROUP_SPARE to
+    spare, in the float32 layout, which both K3 kernels share and which
+    needs more than either bfloat16 one."""
+    smem = _smem_bytes_chains(NB, N, C, 4, bf16=False, grad=True)
+    return 2 <= C <= MAX_CHAINS and smem + GROUP_SPARE <= SMEM_LIMIT
 
 
 @functools.lru_cache(maxsize=256)
@@ -374,16 +385,18 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     chain axis, None without one; ``x_bytes`` X_f's element size. A float32
     X_f: K1/K2 (``chains`` None or 1) or K3 on 2 ≤ C ≤ MAX_CHAINS chains. A
     bfloat16 X_f (``x_bytes`` = 2): K4 (``chains`` None) or K4-chains on
-    1 ≤ C ≤ MAX_CHAINS chains.
+    1 ≤ C ≤ MAX_CHAINS chains. ``grad``: the value-and-gradient kernel,
+    else the value-only one.
 
     K1/K2 and K4: G is the least number of column groups whose U slice and
     two stages of the narrowest tile fit in SMEM_LIMIT (:func:`_group_cols`).
-    K3 and K4-chains take one group: all C·N columns of U and C I_rest spans
-    beside the narrowest tile, else ValueError (:func:`chain_groups` cuts
-    the chains so that each group fits K3). The tile is the widest multiple
-    of 4 bins (8 for a bfloat16 X_f, whose tile spans then start on 16
-    bytes at any NB) up to TILE_MAX (K3-vg, K4-vg-chains: up to
-    :func:`_unit_rows_cap`) whose two stages fit beside the group, then
+    The chain kernels take one group: all C·N columns of U and C I_rest
+    spans beside the narrowest tile, else ValueError (:func:`chain_groups`
+    cuts the chains so that each group fits K3). The tile is the widest
+    multiple of 4 bins (8 for a bfloat16 X_f, whose tile spans then start on
+    16 bytes at any NB) up to TILE_MAX (the chain kernels: up to
+    :func:`_unit_rows_cap`, 256 bins at most) whose two stages fit beside
+    the group, then
     narrowed so that every block takes the same number of tiles, give or
     take one. K2 and K4-vg split a group's dU micro-tiles over grid_y slices
     of THREADS; K3-vg and K4-vg-chains their dU mma tiles over slices of
@@ -397,13 +410,13 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     tile_cap = TILE_MAX
     if x_bytes not in (2, 4):
         raise ValueError(f"X_f of {x_bytes}-byte elements: the kernels take float32 or bfloat16")
-    if chains is not None and grad and (x_bytes == 2 or C > 1):
-        # K3-vg (a float32 X_f, 2 ≤ C) and K4-vg-chains (bfloat16, 1 ≤ C)
+    if chains is not None and (x_bytes == 2 or C > 1):
+        # the chain kernels: K3 (a float32 X_f, 2 ≤ C), K4-chains (bfloat16, 1 ≤ C)
         name, least = ("K4-chains", 1) if x_bytes == 2 else ("K3", 2)
         step = 8 if x_bytes == 2 else 4
 
         def smem(W, tile):
-            return _smem_bytes_vg_chains(NB, W, C, tile, bf16=x_bytes == 2)
+            return _smem_bytes_chains(NB, W, C, tile, bf16=x_bytes == 2, grad=grad)
 
         if not least <= C <= MAX_CHAINS:
             raise ValueError(f"{name} takes {least} to {MAX_CHAINS} chains, not C={C} (NB={NB}, N={N})")
@@ -412,44 +425,18 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
                 f"{name} at NB={NB}, N={N}, C={C} needs {smem(N, step)} B of shared memory "
                 f"(> {SMEM_LIMIT}); it takes no column groups"
             )
-        W, tile_cap = N, _unit_rows_cap(N, C)
+        W, tile_cap = N, _unit_rows_cap(N, C, grad)
         slices = -(-mma_tiles(NB, N, C) // (WARPS * WARP_TILES))
-    elif x_bytes == 4:
-        step = 4
-
-        def smem(W, tile):
-            return _smem_bytes(NB, W, tile, C)
-
-        if C == 1:
-            W = _group_cols(NB, N, lambda W: smem(W, step))
-        elif not 2 <= C <= MAX_CHAINS:
-            raise ValueError(f"K3 takes 2 to {MAX_CHAINS} chains, not C={C} (NB={NB}, N={N})")
-        elif not _k3_fits(NB, N, C):
-            raise ValueError(
-                f"K3 at NB={NB}, N={N}, C={C} needs {_smem_bytes(NB, N, 4, C)} B of shared memory "
-                f"(> {SMEM_LIMIT}); it takes no column groups"
-            )
-        else:
-            W = N
-        slices = -(-du_tiles(NB, W) // THREADS)
     else:
-        step = 8
+        # K1/K2 (a float32 X_f, no chain axis or one chain), K4 (bfloat16, no chain axis)
+        step = 4 if x_bytes == 4 else 8
+        smem_of = _smem_bytes if x_bytes == 4 else _smem_bytes_bf16
 
         def smem(W, tile):
-            return _smem_bytes_bf16(NB, W, tile, chains, grad)
+            return smem_of(NB, W, tile)
 
-        if chains is None:
-            W = _group_cols(NB, N, lambda W: smem(W, step))
-            slices = -(-du_tiles(NB, W) // THREADS)
-        elif not 1 <= C <= MAX_CHAINS:
-            raise ValueError(f"K4-chains takes 1 to {MAX_CHAINS} chains, not C={C} (NB={NB}, N={N})")
-        elif smem(N, step) > SMEM_LIMIT:
-            raise ValueError(
-                f"K4-chains at NB={NB}, N={N}, C={C} needs {smem(N, step)} B of shared memory "
-                f"(> {SMEM_LIMIT}); it takes no column groups"
-            )
-        else:
-            W, slices = N, 1
+        W = _group_cols(NB, N, lambda W: smem(W, step))
+        slices = -(-du_tiles(NB, W) // THREADS)
     groups = -(-N // W)
     tile_max = step
     while tile_max + step <= tile_cap and smem(W, tile_max + step) <= SMEM_LIMIT:
@@ -599,19 +586,19 @@ def _launch_chains(with_grad: bool, x_f, u, i_rest, s, dt: float):
 
 
 def _launch_k3(with_grad: bool, x_f, u, i_rest, s, dt: float):
-    """K3, or K4-chains for a bfloat16 X_f, on the C chains of u: the
-    value-and-gradient kernels from their own library."""
-    lib, tag = _library(x_f)
-    if with_grad:
-        from theano_pyglm_torch.ops.cuda_loader import load_fused_ll_vg_chains
+    """K3, or K4-chains for a bfloat16 X_f, on the C chains of u: values
+    and gradients from the chain kernels' one library."""
+    from theano_pyglm_torch.ops.cuda_loader import load_fused_ll_chains
 
-        lib = load_fused_ll_vg_chains()
+    lib = load_fused_ll_chains()
+    tag = "_bf16" if x_f.dtype == torch.bfloat16 else ""
     T, NB = x_f.shape
     C, _, N = u.shape
     dev = x_f.device
     plan = launch_plan(T, NB, N, _sm_count(dev.index), with_grad, chains=C, x_bytes=x_f.element_size())
-    # float4 rows: dU (K3-vg), then one value per chain; the value and
-    # gradient kernels write a row per block and k-slice
+    # float4 rows: dU (K3-vg), then one value per chain; the value-and-
+    # gradient kernels write a row per block and k-slice, the value kernels
+    # a row per block
     n_du = C * NB * N if with_grad else 0
     width = _ceil_to(n_du + C, 4)
     rows = plan.grid_x * (vg_chains_k_slices(NB, N, C, plan.grid_y) if with_grad else 1)

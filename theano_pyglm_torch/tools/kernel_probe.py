@@ -12,14 +12,17 @@ the flagship shape (T=60,000, NB=135, N=27), plus the full kernels at a few
 shorter T to separate the per-call cost from the per-tile cost;
 ``--shape T,NB,N`` probes another shape instead (without the shorter T),
 after printing each kernel's launch plan there. With ``--chains C`` it
-probes the chain-batched value-and-gradient pair on C chains: K3-vg on a
-float32 X_f and K4-vg-chains on the same X_f rounded to bf16, each in the
-source that holds it. ``--tree DIR`` probes the kernels of another checkout
+probes the four chain-batched kernels on C chains (``--kernels`` picks
+some): K3-fwd and K3-vg on a float32 X_f, K4-fwd-chains and K4-vg-chains on
+the same X_f rounded to bf16, each built from the source of the tree that
+holds it, a value kernel with the switches that mean something for it (no
+dU switch). Variants need switches that a source of another version may
+lack: those are skipped, with a note. ``--tree DIR`` probes the kernels of another checkout
 of the repository (its sources, wrappers and launch plans), e.g. the parent
 commit unpacked under the ignored ``_archive/``. Run from the repository
 root on the GPU machine:
 
-    python3 theano_pyglm_torch/tools/kernel_probe.py [--shape 60000,5,1] [--chains 4] [--tree DIR]
+    python3 theano_pyglm_torch/tools/kernel_probe.py [--shape 60000,5,1] [--chains 4 [--kernels K3-fwd,...]] [--tree DIR]
 """
 
 import argparse
@@ -34,7 +37,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FLAGS = ("NO_COPY", "NO_FWD", "NO_BWD", "NO_EPI", "EXIT", "PLAIN_LAUNCH", "NO_TILES", "NO_DIOUT", "PROLOGUE",
-         "NO_ROWS", "NO_SUMS")
+         "NO_ROWS", "NO_SUMS", "NO_U", "NO_RELAYOUT", "NO_UCOPY", "NO_SPLIT", "ONE_PRODUCT")
 VARIANTS = {
     "full": (),
     "exit": ("EXIT",),  # returns at once: launch and timing overhead
@@ -52,87 +55,143 @@ VARIANTS = {
     "no_tiles_rows": ("NO_TILES", "NO_ROWS"),  # nor the dU partial rows' writes
     "no_tiles_sums": ("NO_TILES", "NO_SUMS"),  # nor the cross-block sums after the barrier
     "empty_no_diout": ("NO_COPY", "NO_FWD", "NO_BWD", "NO_EPI", "NO_DIOUT"),
+    # where the source stages U through shared memory: without U
+    "prologue_no_u": ("PROLOGUE", "NO_U"),
+    "no_tiles_no_u": ("NO_TILES", "NO_U"),
+    "prologue_no_relayout": ("PROLOGUE", "NO_RELAYOUT"),  # U copied in, not laid out
+    "prologue_no_ucopy": ("PROLOGUE", "NO_UCOPY"),  # U laid out from whatever stage 1 holds
+    # where a value forward splits float32 operands for 3xTF32: the splits
+    # off (three products of unsplit operands), or one product of three
+    "no_split": ("NO_SPLIT",),
+    "one_product": ("ONE_PRODUCT",),
 }
 # a tile of no rows after each block's first: nothing to copy, the barriers still complete
 _NO_COPY = ("        const int t0 = tile * tile_t, rows = min(tile_t, T - t0);\n",
             "        const int keep = !(PROBE_NO_COPY && tile != blockIdx.x);\n"
             "        const int t0 = tile * tile_t, rows = keep * min(tile_t, T - t0);\n")
 _EXIT = ("    const bool lead_y = ys == 0;\n", "    const bool lead_y = ys == 0;\n    if (PROBE_EXIT) return;\n")
+# every cooperative launch of the source through a plain one (defined after
+# the runtime's headers, so that their declarations keep their names)
+_PLAIN_LAUNCH = ('#include "fused_ll_common.cuh"\n',
+                 '#include "fused_ll_common.cuh"\n'
+                 "#define cudaLaunchCooperativeKernel(...) \\\n"
+                 "    (PROBE_PLAIN_LAUNCH ? cudaLaunchKernel(__VA_ARGS__) : ::cudaLaunchCooperativeKernel(__VA_ARGS__))\n")
+_NO_TILES = [("    issue(blockIdx.x, 0);\n", "    if (!PROBE_NO_TILES) issue(blockIdx.x, 0);\n"),
+             ("tile < n_tiles; tile += gridDim.x, ++k) {",
+              "tile < (PROBE_NO_TILES ? 0 : n_tiles); tile += gridDim.x, ++k) {")]
 
 
-def _plain_launch(kernel: str, x: str) -> tuple:
-    return ("    return cudaLaunchCooperativeKernel(",
-            "    if (PROBE_PLAIN_LAUNCH) {\n"
-            f"        {kernel}<<<dim3(grid_x, grid_y * G), kThreads, smem_bytes, stream>>>(\n"
-            f"            {x}, u, i_rest, s, d_irest, part, out, bar, T, NB, N, W, tile_t, dt, log_dt, C);\n"
-            "        return cudaGetLastError();\n"
-            "    }\n"
-            "    return cudaLaunchCooperativeKernel(")
+def _prologue(anchor: str) -> tuple:
+    """Return once the first tile (and U) have landed, just before ``anchor``."""
+    return (anchor, "    if (PROBE_PROLOGUE) {\n"
+                    "        asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
+                    "        mbar_wait(&s_bar[0], 0);\n"
+                    "        return;\n"
+                    "    }\n" + anchor)
 
 
-# (anchor in the source, what replaces it) for each source file name; each
-# anchor must occur once
+def _no_epi(name: str, chains_line: str, line: str) -> list:
+    """The epilogue off, the products' sums kept live in ``name``: an array
+    of values per chain where the template held the chain instance (its
+    epilogue's next line ``chains_line``), else a scalar (next line
+    ``line``)."""
+    head = "if (r < rows && col < nc) {  // the ragged tile, the padded columns\n" + " " * 24
+    off = "if (PROBE_NO_EPI) {}{} += acc_lo[j][c] + acc_hi[j][c];\n" + " " * 20 + "if (!PROBE_NO_EPI && r < rows"
+    return [(head + chains_line, off.format(name, "[0]") + head[len("if (r < rows"):] + chains_line),
+            (head + line, off.format(name, "") + head[len("if (r < rows"):] + line)]
+
+
+# a unit's products, kept live without the epilogue: a 16-bin unit's
+# accumulators (n-tile, fragment) or a two-m-tile unit's (m-tile, n-tile,
+# fragment)
+_PROBE_SUM = """namespace {
+template <int A, int B>
+__device__ float probe_sum(const float (&a)[A][B], int j, int p) { return a[j][p] + a[j][2 + p]; }
+template <int M, int A, int B>
+__device__ float probe_sum(const float (&a)[M][A][B], int j, int p) { return a[0][j][p] + a[M - 1][j][2 + p]; }
+}  // namespace
+"""
+
+_COMMON = [_EXIT, _NO_COPY, _PLAIN_LAUNCH, *_NO_TILES]
+# (anchor in the source, what replaces it[, ALL]) for each source file name;
+# an anchor occurs once or not at all (a source of another version of the
+# tree), or, marked ALL, any number of times, and a variant is built only
+# where all its switches are wired
+ALL = "all"
 EDITS = {
-    # K1, K2, K3-fwd (and, before the chain vg kernels had a source of their own, K3-vg)
-    "fused_poisson_ll.cu": [
-        _EXIT, _NO_COPY, _plain_launch("fused_ll_tiles<kGrad, kChains>", "x_f"),
+    # K1, K2 (and, in the trees before the chain kernels had one source, K3-fwd)
+    "fused_poisson_ll.cu": _COMMON + [
         ("for (int kk = 0; kk < KP; kk += 8) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 8) {"),
         ("            if (owns_du) {\n", "            if (owns_du && !PROBE_NO_BWD) {\n"),
-        ("if (r < rows && col < nc) {  // the ragged",
-         "if (PROBE_NO_EPI) part[0] += acc_lo[j][c] + acc_hi[j][c];\n"
-         "                    if (!PROBE_NO_EPI && r < rows && col < nc) {  // the ragged"),
+        *_no_epi("part", "const int ch = kChains ? col / N : 0;", "const int e = r * rs + col;"),
+        _prologue("    // K2's dU: kMtM × kMtN micro-tiles"),
+        ("    sum_columns(part, out, w4, s_join);", "    if (!PROBE_NO_SUMS) sum_columns(part, out, w4, s_join);"),
     ],
-    # K4 as the parent of the redesign held it (K4-vg-chains in this template)
-    "fused_poisson_ll_bf16.cu": [
-        _EXIT, _NO_COPY, _plain_launch("fused_ll_bf16_tiles<kGrad, kChains>", "x"),
-        ("for (int kk = 0; kk < KP; kk += 16) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 16) {"),
-        ("const int kb_end = ceil_to(rows, 16) >> 4;", "const int kb_end = PROBE_NO_BWD ? 0 : ceil_to(rows, 16) >> 4;"),
-        ("if (r < rows && col < nc) {  // the ragged",
-         "if (PROBE_NO_EPI) part_v[0] += acc_lo[j][c] + acc_hi[j][c];\n"
-         "                    if (!PROBE_NO_EPI && r < rows && col < nc) {  // the ragged"),
-        ("if (kChains && kGrad && col < DC)", "if (!PROBE_NO_EPI && kChains && kGrad && col < DC)"),
-    ],
-    # K3-vg and K4-vg-chains, redesigned
-    "fused_ll_vg_chains.cu": [
-        _EXIT, _NO_COPY,
-        ("    return cudaLaunchCooperativeKernel(",
-         "    if (PROBE_PLAIN_LAUNCH) {\n"
-         "        vg_chains_tiles<X><<<dim3(grid_x, grid_y), kThreads, smem_bytes, stream>>>(\n"
-         "            x, u, i_rest, s, d_irest, part, out, bar, T, NB, N, C, tile_t, dt, log_dt);\n"
-         "        return cudaGetLastError();\n"
-         "    }\n"
-         "    return cudaLaunchCooperativeKernel("),
+    # K4-fwd, K4-vg (and, in the trees before the chain kernels had one source, K4-fwd-chains)
+    "fused_poisson_ll_bf16.cu": _COMMON + [
         ("for (int kk = 0; kk < KP; kk += 16) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 16) {"),
         ("for (int kk = 0; kk < KP; kk += 8) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 8) {"),
-        ("        const int kb_end = ceil_to(rows, K16) / K16;\n",
-         "        const int kb_end = PROBE_NO_BWD ? 0 : ceil_to(rows, K16) / K16;\n"),
-        # the products' sums stay live without the epilogue
-        ("const bool live = col < CN;", "const bool live = !PROBE_NO_EPI && col < CN;"),
-        ("float col_sum = 0.f;", "float col_sum = PROBE_NO_EPI ? acc[j][p] + acc[j][2 + p] : 0.f;"),
-        ("    issue(blockIdx.x, 0);\n", "    if (!PROBE_NO_TILES) issue(blockIdx.x, 0);\n"),
-        ("    // this warp's run of dU items",
-         "    if (PROBE_PROLOGUE) {\n"
-         "        asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
-         "        mbar_wait(&s_bar[0], 0);\n"
-         "        return;\n"
-         "    }\n"
-         "    // this warp's run of dU items"),
-        ("tile < n_tiles; tile += gridDim.x, ++k) {", "tile < (PROBE_NO_TILES ? 0 : n_tiles); tile += gridDim.x, ++k) {"),
-        ("    {\n        int m = m_first, n = n_first;", "    if (!PROBE_NO_ROWS) {\n        int m = m_first, n = n_first;"),
+        ("            if (owns_du) {\n", "            if (owns_du && !PROBE_NO_BWD) {\n"),
+        *_no_epi("part_v", "const int ch = kChains ? col / N : 0;", "const int e = r * rs + col;"),
+        _prologue("    // K4-vg's dU: kMtM × kMtN micro-tiles"),
+        ("    sum_columns(part, out, w4, s_join);", "    if (!PROBE_NO_SUMS) sum_columns(part, out, w4, s_join);"),
+    ],
+    # the four chain kernels: K3-fwd, K3-vg, K4-fwd-chains, K4-vg-chains
+    "fused_ll_chains.cu": _COMMON + [
+        ("for (int kk = 0; kk < KP; kk += 16) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 16) {"),
+        ("for (int kk = 0; kk < KP; kk += 8) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 8) {"),
+        ("const int kb_end = ceil_to(rows, K16) / K16;", "const int kb_end = PROBE_NO_BWD ? 0 : ceil_to(rows, K16) / K16;"),
+        # the products' sums stay live without the epilogue (in both instances' epilogues)
+        ("const bool live = col < CN;", "const bool live = !PROBE_NO_EPI && col < CN;", ALL),
+        ("float col_sum = 0.f;", "float col_sum = PROBE_NO_EPI ? probe_sum(acc, j, p) : 0.f;", ALL),
+        ("const int KPV = KP;", "const int KPV = PROBE_NO_FWD ? 0 : KP;"),
+        ('#include "fused_ll_common.cuh"\n', '#include "fused_ll_common.cuh"\n' + _PROBE_SUM),
+        _prologue("    // this warp's run of dU items"),
+        ("        int m = m_first, n = n_first;\n#pragma unroll\n        for (int j = 0; j < kWarpTiles; ++j) {\n"
+         "            if (j >= n_mine) break;",
+         "        int m = m_first, n = n_first;\n#pragma unroll\n        for (int j = 0; j < kWarpTiles; ++j) {\n"
+         "            if (PROBE_NO_ROWS || j >= n_mine) break;"),
         ("    sum_part_rows(part, out", "    if (!PROBE_NO_SUMS) sum_part_rows(part, out"),
-        ("        if (lead_y)\n            for (int ch = 0; ch < C; ++ch) copy_out(",
-         "        if (lead_y && !PROBE_NO_DIOUT)\n            for (int ch = 0; ch < C; ++ch) copy_out("),
+        ("for (int q = 0; q < 4; ++q) split_tf32(x[i][q], ab[i][q], as[i][q]);",
+         "for (int q = 0; q < 4; ++q)\n"
+         "    if (PROBE_NO_SPLIT) ab[i][q] = __float_as_uint(x[i][q]), as[i][q] = 0u;\n"
+         "    else split_tf32(x[i][q], ab[i][q], as[i][q]);"),
+        ("split_tf32(u8[j][0], bb[j][0], bs[j][0]), split_tf32(u8[j][1], bb[j][1], bs[j][1]);",
+         "if (PROBE_NO_SPLIT) bb[j][0] = __float_as_uint(u8[j][0]), bb[j][1] = __float_as_uint(u8[j][1]),\n"
+         "    bs[j][0] = bs[j][1] = 0u;\n"
+         "else split_tf32(u8[j][0], bb[j][0], bs[j][0]), split_tf32(u8[j][1], bb[j][1], bs[j][1]);"),
+        ("for (int j = 0; j < W; ++j) mma_tf32(acc[i][j], as[i], bb[j][0], bb[j][1]);",
+         "for (int j = 0; j < W && !PROBE_ONE_PRODUCT; ++j) mma_tf32(acc[i][j], as[i], bb[j][0], bb[j][1]);"),
+        ("for (int j = 0; j < W; ++j) mma_tf32(acc[i][j], ab[i], bs[j][0], bs[j][1]);",
+         "for (int j = 0; j < W && !PROBE_ONE_PRODUCT; ++j) mma_tf32(acc[i][j], ab[i], bs[j][0], bs[j][1]);"),
+        ("for (int lo = 0, ph = 0; lo < UT; lo += cap, ++ph) {",
+         "for (int lo = 0, ph = 0; lo < (PROBE_NO_U ? 0 : UT); lo += cap, ++ph) {"),
+        ("    if constexpr (!kGrad) u_chunk(0);", "    if constexpr (!kGrad) if (!PROBE_NO_U) u_chunk(0);"),
+        ("            // so that the reads' latencies overlap.\n",
+         "            // so that the reads' latencies overlap.\n"
+         "            if (!PROBE_NO_RELAYOUT)\n"),
+        ("            mbar_expect_tx(&s_bar[2], (uint32_t)nb * 4);\n            if (nb) bulk_copy(",
+         "            mbar_expect_tx(&s_bar[2], PROBE_NO_UCOPY ? 0u : (uint32_t)nb * 4);\n"
+         "            if (nb && !PROBE_NO_UCOPY) bulk_copy("),
+        ("if (lead_y)\n                for (int ch = 0; ch < C; ++ch) copy_out(",
+         "if (lead_y && !PROBE_NO_DIOUT)\n                for (int ch = 0; ch < C; ++ch) copy_out("),
     ],
 }
+# the variants that mean something for a value-only kernel (no dU, no dI)
+VALUE_VARIANTS = ("full", "exit", "exit_plain", "no_copy", "no_fwd", "no_epi", "copy_only", "empty", "prologue",
+                  "no_tiles", "no_tiles_sums", "prologue_no_u", "no_tiles_no_u", "prologue_no_relayout",
+                  "prologue_no_ucopy", "no_split", "one_product")
 FLAGSHIP, DT = (60_000, 135, 27), 1e-3
 
 
-def build(source, out_dir: str) -> dict:
-    """{variant: ctypes library} of ``source`` with each variant's parts off."""
+def build(source, out_dir: str, names=None) -> dict:
+    """{variant: ctypes library} of ``source`` with each variant's parts off
+    (of the variants in ``names``, default all), for every variant whose
+    switches the source's anchors wire."""
     src = source.read_text()
-    for anchor, new in EDITS[source.name]:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"probe anchor not found once in {source.name}: {anchor!r}")
+    for anchor, new, *every in EDITS[source.name]:
+        if src.count(anchor) > 1 and not every:
+            raise RuntimeError(f"probe anchor found more than once in {source.name}: {anchor!r}")
         src = src.replace(anchor, new)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"probe_{source.stem}.cu")
@@ -142,8 +201,11 @@ def build(source, out_dir: str) -> dict:
 
     procs = {}
     for name, on in VARIANTS.items():
+        if names is not None and name not in names:
+            continue
         if not all(f"PROBE_{f}" in src for f in on):
-            continue  # a switch this source does not have
+            print(f"  ({source.name} has no switch for {name})", flush=True)
+            continue
         flags = [f"-DPROBE_{f}={int(f in on)}" for f in FLAGS]
         out = os.path.join(out_dir, f"{source.stem}_{name}.so")
         cmd = [cuda_loader._nvcc(), *cuda_loader.nvcc_flags(), *flags, "-I", str(source.parent), "-o", out, path]
@@ -237,9 +299,21 @@ def probe_one_chain(T, NB, N, card, out_dir) -> None:
                     print(f"  T={tt}: K1 warm {k1:7.1f} us, K2 warm {k2:7.1f} us", flush=True)
 
 
-def probe_chains(T, NB, N, C, card, out_dir) -> None:
-    """K3-vg and K4-vg-chains on C chains with each part off in turn, each
-    built from the source of the tree that holds it."""
+CHAIN_KERNELS = {  # name: (LAUNCHES key, gradient, bf16 X_f)
+    "K3-fwd": ("fwd_chains", False, False), "K3-vg": ("vg_chains", True, False),
+    "K4-fwd-chains": ("fwd_chains_bf16", False, True), "K4-vg-chains": ("vg_chains_bf16", True, True)}
+
+
+def _source_of(cuda_loader, key: str):
+    """The source that holds entry point ``fused_ll_<key>`` in the tree."""
+    return next(src for src, names in cuda_loader.ENTRY_POINTS.items() if key in names)
+
+
+def probe_chains(T, NB, N, C, card, out_dir, which) -> None:
+    """The chain kernels in ``which`` on C chains with each part off in
+    turn, each built from the source of the tree that holds it: K3-fwd and
+    K3-vg on a float32 X_f, K4-fwd-chains and K4-vg-chains on the same X_f
+    rounded to bf16."""
     from theano_pyglm_torch.ops import cuda_loader, kernels
 
     r = np.random.RandomState(2)
@@ -247,15 +321,21 @@ def probe_chains(T, NB, N, C, card, out_dir) -> None:
                    (0.1 * r.randn(T, NB), 0.3 * r.randn(C, NB, N), r.randn(C, T, N) - 3.0, r.poisson(0.02, (T, N))))
     flush = torch.empty(40 * 2**20, dtype=torch.float32, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chain_vg = getattr(cuda_loader, "SOURCE_VG_CHAINS", None)
-    for k, xk, x_bytes, src in (("K3-vg", x, 4, chain_vg or cuda_loader.SOURCE),
-                                ("K4-vg-chains", x.to(torch.bfloat16), 2, chain_vg or cuda_loader.SOURCE_BF16)):
-        plan = kernels.launch_plan(T, NB, N, sms, True, chains=C, x_bytes=x_bytes)
+    built = {}
+    for k in which:
+        key, grad, bf16 = CHAIN_KERNELS[k]
+        xk = x.to(torch.bfloat16) if bf16 else x
+        src = _source_of(cuda_loader, key)
+        plan = kernels.launch_plan(T, NB, N, sms, grad, chains=C, x_bytes=2 if bf16 else 4)
         print(f"{k} at T={T}, NB={NB}, N={N}, C={C} ({src.name}): {plan}", flush=True)
-        libs = build(src, out_dir)
-        for name, lib in libs.items():
+        if src not in built:
+            built[src] = build(src, out_dir)
+        fn = kernels.fused_ll_value_and_grad_chains if grad else kernels.fused_ll_value_chains
+        for name, lib in built[src].items():
+            if not grad and name not in VALUE_VARIANTS:
+                continue
             with _Swapped(cuda_loader, src, lib):
-                call = lambda: kernels.fused_ll_value_and_grad_chains(xk, u, ir, s, DT)  # noqa: E731
+                call = lambda: fn(xk, u, ir, s, DT)  # noqa: E731
                 print(f"{k} {name:10s} warm {median_us(call):7.1f} us cold {median_us(call, flush):7.1f} us"
                       f"  [{card}]", flush=True)
 
@@ -263,7 +343,9 @@ def probe_chains(T, NB, N, C, card, out_dir) -> None:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", default=",".join(map(str, FLAGSHIP)), help="T,NB,N")
-    p.add_argument("--chains", type=int, default=0, help="probe K3-vg and K4-vg-chains on this many chains")
+    p.add_argument("--chains", type=int, default=0, help="probe the chain kernels on this many chains")
+    p.add_argument("--kernels", default=",".join(CHAIN_KERNELS),
+                   help="with --chains: which of " + ", ".join(CHAIN_KERNELS))
     p.add_argument("--tree", default=REPO, help="the checkout whose kernels are probed")
     args = p.parse_args()
     T, NB, N = (int(v) for v in args.shape.split(","))
@@ -276,7 +358,7 @@ def main() -> None:
     one = torch.zeros(1, device="cuda")
     print(f"{tree}: a one-element torch add, the same way: {median_us(lambda: one.add_(1.0)):7.1f} us", flush=True)
     if args.chains:
-        probe_chains(T, NB, N, args.chains, card, out_dir)
+        probe_chains(T, NB, N, args.chains, card, out_dir, args.kernels.split(","))
     else:
         probe_one_chain(T, NB, N, card, out_dir)
 

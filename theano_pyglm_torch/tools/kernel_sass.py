@@ -3,8 +3,8 @@
 compared.
 
 Compiles each checkout's ``theano_pyglm_torch/csrc/fused_poisson_ll.cu`` (and
-``fused_poisson_ll_bf16.cu`` and ``fused_ll_vg_chains.cu`` where the
-checkout has them) to cubins with this checkout's nvcc flags, and prints for
+``fused_poisson_ll_bf16.cu``, ``fused_ll_vg_chains.cu`` and
+``fused_ll_chains.cu`` where the checkout has them) to cubins with this checkout's nvcc flags, and prints for
 each kernel (K1, K2, K3-fwd / K3-vg and the four K4 where the checkout has
 them, from whichever source holds them) its registers, stack and
 instruction count, and how many lines of its SASS differ from the first
@@ -30,12 +30,14 @@ sys.path.insert(0, REPO)
 from theano_pyglm_torch.ops import cuda_loader  # noqa: E402
 
 # fused_ll_tiles<kGrad> (one-chain template) or fused_ll_tiles<kGrad, kChains>,
-# the bf16 design's fused_ll_bf16_tiles<kGrad, kChains> (a bool argument
-# reads "true" or "(bool)1"), and the chain value-and-gradient pair's
-# vg_chains_tiles<float> (K3-vg) and <unsigned short> (K4-vg-chains)
+# the bf16 design's fused_ll_bf16_tiles<kGrad[, kChains]> (a bool argument
+# reads "true" or "(bool)1"), the chain value-and-gradient pair's
+# vg_chains_tiles<float> (K3-vg) and <unsigned short> (K4-vg-chains), and
+# the four chain kernels' chains_tiles<X, kGrad>
 _TEMPLATE = re.compile(r"fused_ll(_bf16)?_tiles<([^,>]+)(?:, ?([^>]+))?>")
-_VG_CHAINS = re.compile(r"vg_chains_tiles<([^>]+)>")
-_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_bf16.cu", "fused_ll_vg_chains.cu")
+_CHAINS = re.compile(r"(?:vg_)?chains_tiles<([^,>]+)(?:, ?([^>]+))?>")
+_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_bf16.cu", "fused_ll_vg_chains.cu", "fused_ll_chains.cu")
+_TRUE = ("true", "(bool)1")
 _MASKS = [
     (re.compile(r"/\*[0-9a-f]{4,}\*/"), ""),  # the instruction's address
     (re.compile(r"/\* 0x[0-9a-f]+ \*/"), ""),  # its encoding
@@ -44,13 +46,15 @@ _MASKS = [
 
 
 def _kernel(demangled: str):
-    m = _VG_CHAINS.search(demangled)
+    m = _CHAINS.search(demangled)
     if m is not None:
-        return "K3-vg" if m.group(1) == "float" else "K4-vg-chains"
+        grad = m.group(2) is None or m.group(2) in _TRUE  # vg_chains_tiles<X>: gradients
+        return ("K3" if m.group(1) == "float" else "K4") + ("-vg" if grad else "-fwd") + \
+            ("" if m.group(1) == "float" else "-chains")
     m = _TEMPLATE.search(demangled)
     if m is None:
         return None
-    grad, chains = (m.group(i) in ("true", "(bool)1") for i in (2, 3))
+    grad, chains = (m.group(i) in _TRUE for i in (2, 3))
     if m.group(1):
         return f"K4-{'vg' if grad else 'fwd'}{'-chains' if chains else ''}"
     return ("K3-vg" if grad else "K3-fwd") if chains else ("K2" if grad else "K1")
