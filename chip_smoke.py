@@ -127,7 +127,10 @@ Phases, each of which raises on a mismatch or a non-finite value:
    beside the plain version's and beside K1/K2/K3 on the widened X_f, the
    bound (bf16 X_f bytes; bf16 × float32 products as 2 TF32 products, the
    chain kernels' bf16 × bf16 products at 989 TFLOP/s)
-   and share; the chain pair likewise at configs 2-4's shapes. 10b: phase
+   and share; K4-fwd and K4-vg likewise at configs 1-4's shapes and at
+   the long recording's three (N=100, in K4's four column groups, with the
+   bound of X_f read once a group too), the chain pair at configs 2-4's
+   sampler chains. 10b: phase
    3's spikes, stimulus and model with a bf16 design: prepare_data, smart
    init, MAP (K4-vg launches equal to the L-BFGS evaluations), then
    rgc_flagship.run with 4 chains x (20 + 10) batched sweeps (K4-chains
@@ -1816,35 +1819,44 @@ def _harness(dev, card, work) -> dict:
 BF16_CHAINS, BF16_WARMUP, BF16_SAMPLES = 4, 20, 10  # depth cut (see the module note)
 
 
-def _bf16_operands(dev, T, N, C, clip_entries=0):
-    """:func:`_chain_operands` with X_f rounded to bf16."""
+def _bf16_operands(dev, T, N, C, clip_entries=0, on_device=False):
+    """:func:`_chain_operands` with X_f rounded to bf16; ``on_device``: one
+    chain of :func:`_kernel_operands` drawn on the card (the long
+    recording's sizes)."""
+    if on_device:
+        x, u, ir, s = _kernel_operands(dev, T, N, clip_entries, on_device=True)
+        return [x.to(torch.bfloat16), u[None], ir[None], s]
     x, u, ir, s = _chain_operands(dev, T, N, C, clip_entries)
     return [x.to(torch.bfloat16), u, ir, s]
 
 
-def check_bf16_kernels(dev, T, N, C, label, card, one_chain=True) -> dict:
-    """K4-fwd-chains and K4-vg-chains on C chains at (T, NB=5N, N) and, with
-    ``one_chain``, K4-fwd and K4-vg on chain 0 without a chain axis, against
-    their plain versions (float32 sums in another order: each value 1e-5
-    relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 / atol=1e-6), with a
-    clipped case; bit-for-bit repeats, one launch per call; the median
-    times of 50 calls, warm and L2-cold, beside the plain version's and
-    beside the float32 kernel on the same widened X_f (K1, K2, K3-fwd,
-    K3-vg) in the same call; the bound (a bf16 X_f read once; the chain
-    kernels' products at the bf16 rate) and the roofline share."""
+def check_bf16_kernels(dev, T, N, C, label, card, one_chain=True, chains=True, on_device=False) -> dict:
+    """With ``chains``, K4-fwd-chains and K4-vg-chains on C chains at (T,
+    NB=5N, N) and, with ``one_chain``, K4-fwd and K4-vg on chain 0 without a
+    chain axis, against their plain versions (float32 sums in another order:
+    each value 1e-5 relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 /
+    atol=1e-6), with a clipped case; bit-for-bit repeats, one launch per
+    call; the median times of 50 calls, warm and L2-cold, beside the plain
+    version's and beside the float32 kernel on the same widened X_f (K1,
+    K2, K3-fwd, K3-vg) in the same call; the bound (a bf16 X_f read once;
+    the chain kernels' products at the bf16 rate; with K4's column groups
+    also X_f read once a group) and the roofline share. ``on_device``: one
+    chain's operands drawn on the card (the long recording's sizes)."""
     def one(ops):
         return [ops[0], ops[1][0].contiguous(), ops[2][0].contiguous(), ops[3]]
 
-    pairs = [("fwd_chains_bf16", kernels.fused_ll_value_chains, kernels.fused_poisson_ll_chains_value_reference,
-              lambda o: o),
-             ("vg_chains_bf16", kernels.fused_ll_value_and_grad_chains, kernels.fused_poisson_ll_chains_reference,
-              lambda o: o)]
+    pairs = []
+    if chains:
+        pairs += [("fwd_chains_bf16", kernels.fused_ll_value_chains,
+                   kernels.fused_poisson_ll_chains_value_reference, lambda o: o),
+                  ("vg_chains_bf16", kernels.fused_ll_value_and_grad_chains, kernels.fused_poisson_ll_chains_reference,
+                   lambda o: o)]
     if one_chain:
         pairs += [("fwd_bf16", kernels.fused_ll_value, kernels.fused_poisson_ll_value_reference, one),
                   ("vg_bf16", kernels.fused_ll_value_and_grad, kernels.fused_poisson_ll_reference, one)]
     max_err = {}
     for clip_entries in (0, 500):
-        all_ops = _bf16_operands(dev, T, N, C, clip_entries)
+        all_ops = _bf16_operands(dev, T, N, C, clip_entries, on_device)
         for k, kern, plain, pick in pairs:
             ops = pick(all_ops)
             got, want = kern(*ops, DT), plain(*ops, DT)
@@ -1870,7 +1882,9 @@ def check_bf16_kernels(dev, T, N, C, label, card, one_chain=True) -> dict:
                 max_err[k] = err
             log(f"{label} T={T} N={N} C={C}, {k} vs plain (clipped entries {clip_entries}): {msg}")
 
-    all_ops = _bf16_operands(dev, T, N, C)
+        del all_ops
+        torch.cuda.empty_cache()
+    all_ops = _bf16_operands(dev, T, N, C, on_device=on_device)
     wide = [all_ops[0].float()] + all_ops[1:]
     launches = dict(kernels.LAUNCHES)
     for k, kern, _, pick in pairs:
@@ -1901,6 +1915,10 @@ def check_bf16_kernels(dev, T, N, C, label, card, one_chain=True) -> dict:
             f"{bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; tile "
             f"{plan.tile_t}, grid {plan.grid_x} x {plan.grid_y * plan.groups}, {plan.smem_bytes} B of shared "
             f"memory [{card}]")
+        if plan.groups > 1:
+            g_ms, g_by = bound(k, ops, x_reads=plan.groups)
+            log(f"  {k}: {plan.groups} column groups of at most {plan.group_cols}; with X_f read {plan.groups} times "
+                f"the bound is {g_ms:.4f} ms ({g_by}), share {100 * g_ms / cold:.1f} %")
         stats[k] = {"max_abs_err": max_err[k], "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
                     "plain_cold_ms": plain_cold, "f32_kernel_ms": f32_warm, "f32_kernel_cold_ms": f32_cold,
                     "bound_ms": bound_ms, "bound_by": bound_by, "share": share, "library_ms": None}
@@ -2067,9 +2085,14 @@ def main() -> None:
     # phase 10: the bf16 design (K4) on phase 3's flagship
     t0 = time.perf_counter()
     kstats.update(check_bf16_kernels(dev, T, N, BF16_CHAINS, "10a flagship", card))
-    for c in (2, 3, 4):
+    for c in (1, 2, 3, 4):  # K4 at each config's shape; the chain pair at its sampler's chains
         T_c, N_c = ACCEPT_SHAPES[c]
-        check_bf16_kernels(dev, T_c, N_c, ACCEPT_SAMPLER_CHAINS[c], f"10a config {c}", card, one_chain=False)
+        check_bf16_kernels(dev, T_c, N_c, ACCEPT_SAMPLER_CHAINS.get(c, 1), f"10a config {c}", card,
+                           chains=c in ACCEPT_SAMPLER_CHAINS)
+    # K4 at the long recording's three shapes (phase 8a's), in its column groups
+    for T_, label in ((T_LONG, "resident"), (65_536, "block"), (10_176, "last block")):
+        check_bf16_kernels(dev, T_, N_LONG, 1, f"10a N={N_LONG} {label}", card, chains=False, on_device=True)
+        torch.cuda.empty_cache()
     log(f"phase 10a: {time.perf_counter() - t0:.2f} s")
     launches = _add(launches, bf16_phase(sl, card))
 

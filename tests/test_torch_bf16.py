@@ -562,7 +562,7 @@ def test_bf16_launch_plan_tiles_cover_time_once(T, chains):
                 else kernels._smem_bytes_chains(135, 27, chains, plan.tile_t, True, grad))
         assert plan.smem_bytes == want
         want_y = (-(-kernels.mma_tiles(135, 27, chains) // (kernels.WARPS * kernels.WARP_TILES))
-                  if chains else -(-kernels.du_tiles(135, 27) // kernels.THREADS))
+                  if chains else kernels.k4_du_slices(135, 27))
         assert plan.grid_y == (want_y if grad else 1)
 
 
@@ -570,8 +570,9 @@ def test_bf16_launch_plan_flagship_and_limits():
     """The flagship plans at C = 4 in one dU slice (126 mma tiles); the bf16
     X_f frees shared memory, so the chain kernel holds every chain count
     that K3 holds, and a group of one chain where K3 takes none (N = 100).
-    K4 takes column groups as K1/K2 (N = 100 at NB = 500: two); the chain
-    kernel none, and past MAX_CHAINS or in column groups it raises."""
+    K4 takes column groups of its own (N = 100 at NB = 500: four, of at
+    most 32 columns); the chain kernel none, and past MAX_CHAINS or in
+    column groups it raises."""
     for grad in (False, True):
         plan = kernels.launch_plan(60_000, 135, 27, H100_SMS, grad, chains=4, x_bytes=2)
         assert plan.grid_y == 1 and plan.grid_x == H100_SMS and plan.tile_t >= 60
@@ -581,7 +582,8 @@ def test_bf16_launch_plan_flagship_and_limits():
             bf16, f32 = (kernels._smem_bytes_chains(5 * N, N, C, 8, b, grad) for b in (True, False))
             assert bf16 < f32
     assert kernels.launch_plan(600_000, 500, 100, H100_SMS, True, chains=1, x_bytes=2).groups == 1
-    assert kernels.launch_plan(600_000, 500, 100, H100_SMS, True, x_bytes=2).groups == 2
+    plan = kernels.launch_plan(600_000, 500, 100, H100_SMS, True, x_bytes=2)
+    assert (plan.groups, plan.group_cols, plan.tile_t) == (4, 32, 32)
     with pytest.raises(ValueError, match="K4-chains takes"):
         kernels.launch_plan(1000, 15, 3, H100_SMS, True, chains=kernels.MAX_CHAINS + 1, x_bytes=2)
     with pytest.raises(ValueError, match="shared memory"):
@@ -611,6 +613,96 @@ def test_bf16_value_chains_plans():
         for c in set(kernels.chain_groups(5 * n, n, 8)):
             plan = kernels.launch_plan(1000, 5 * n, n, H100_SMS, False, chains=c, x_bytes=2)
             assert plan.smem_bytes <= kernels.SMEM_LIMIT
+
+
+# K4-fwd's and K4-vg's shapes on chip_smoke.py's paths: the flagship,
+# configs 1-4 and the long recording's three (N = 100, in column groups)
+K4_SHAPES = [(60_000, 135, 27), (60_000, 5, 1), (240_000, 50, 10), (30_000, 50, 10), (60_000, 80, 16),
+             (600_000, 500, 100), (65_536, 500, 100), (10_176, 500, 100)]
+
+
+def _k4_groups_of(N, W):
+    """The column groups' n-tile counts (group q: n-tiles q·NT/G up to
+    (q + 1)·NT/G)."""
+    nt = -(-N // 8)
+    G = -(-nt // -(-W // 8))
+    return [(q + 1) * nt // G - q * nt // G for q in range(G)]
+
+
+@pytest.mark.parametrize("T,NB,N", K4_SHAPES)
+def test_k4_smem_mirror_is_the_layout(T, NB, N):
+    """The plan's shared memory is the layout's, counted here from its
+    parts: U split into TF32 big and small parts (a uint4 a lane, k-step of
+    8 and n-tile of the widest group), two stages of X_f (ceil16(tile) rows
+    and 16 values more, in bf16) with the I_rest and S spans (8 words past
+    their rows), and the forward's join slots where units split their
+    k-steps; within the limit, the groups at most K4_GROUP_TILES n-tiles, the
+    tile at least K4_MIN_TILE bins where T allows."""
+    for grad in (False, True):
+        plan = kernels.launch_plan(T, NB, N, H100_SMS, grad, x_bytes=2)
+        sizes = _k4_groups_of(N, plan.group_cols)
+        assert len(sizes) == plan.groups and max(sizes) - min(sizes) <= 1
+        assert max(sizes) <= kernels.K4_GROUP_TILES and plan.group_cols == (N if plan.groups == 1 else 8 * max(sizes))
+        rt, ks = -(-plan.tile_t // 16) * 16, -(-NB // 8)
+        u_words = ks * max(sizes) * 32 * 4
+        x_words = -(-(rt * NB + 16) // 8) * 8 // 2
+        span = -(-(plan.tile_t * plan.group_cols) // 4) * 4 + 8
+        join = 0
+        for ntg in set(sizes):
+            ngf, units, kf, width = kernels._k4_fwd_split(rt, ntg, ks)
+            join = max(join, units * kf * 32 * 8 * width if kf > 1 else 0)
+        assert plan.smem_bytes == 4 * (u_words + 2 * (x_words + 2 * span) + join) <= kernels.SMEM_LIMIT
+        assert plan.tile_t >= min(kernels.K4_MIN_TILE, -(-T // 8) * 8)
+    if N == 100:
+        assert (plan.groups, plan.group_cols, plan.tile_t, plan.grid_x) == (4, 32, 32, H100_SMS // 4)
+
+
+@pytest.mark.parametrize("T,NB,N", K4_SHAPES + [(3, 135, 27), (999, 77, 9), (1000, 1500, 300)])
+def test_k4_vg_items_cover_every_item_once(T, NB, N):
+    """K4-vg's dU tiles (16 × 8 items): in each column group and k-slice
+    every item in one warp's rows exactly once, at most WARP_TILES a warp,
+    whole m-rows a warp; the k-slices' joined rows fit in the shared
+    memory."""
+    plan = kernels.launch_plan(T, NB, N, H100_SMS, True, x_bytes=2)
+    runs = kernels.k4_vg_items(NB, N, plan.group_cols, plan.grid_y)
+    ksl = 1 + max(kk for _, kk, _ in runs)
+    rows_a_slice = min(16 * -(-(-(-NB // 16)) // plan.grid_y), NB)
+    assert kernels.WARPS % ksl == 0 and 4 * ksl * rows_a_slice * plan.group_cols <= plan.smem_bytes
+    mt = -(-NB // 16)
+    assert len(runs) == plan.groups * plan.grid_y * kernels.WARPS
+    for q, ntg in enumerate(_k4_groups_of(N, plan.group_cols)):
+        want = sorted((m, n) for m in range(mt) for n in range(ntg))
+        for k in range(ksl):
+            got = sorted(it for grp, kk, items in runs if grp == q and kk == k for it in items)
+            assert got == want, (q, k)
+    for _, kk, items in runs:
+        assert 0 <= kk < ksl and len(items) <= kernels.WARP_TILES
+        rows = {m for m, _ in items}
+        assert len(items) == len(rows) * max((n for _, n in items), default=-1) + len(rows)
+
+
+@pytest.mark.parametrize("T,NB,N", K4_SHAPES + [(3, 135, 27), (999, 77, 9)])
+def test_k4_forward_units_cover_the_tile_once(T, NB, N):
+    """K4's forward: the units (32 bins × up to K4_UNIT_TILES n-tiles) and
+    their k-slices cover each (row pair, n-tile, k-step) of a tile once, on
+    at most 8 warps where the k-steps are split, and as many warps a unit as
+    a power of 2 allows, a k-step a warp at least."""
+    plan = kernels.launch_plan(T, NB, N, H100_SMS, False, x_bytes=2)
+    rt, ks = -(-plan.tile_t // 16) * 16, -(-NB // 8)
+    for ntg in set(_k4_groups_of(N, plan.group_cols)):
+        ngf, units, kf, width = kernels._k4_fwd_split(rt, ntg, ks)
+        assert width <= kernels.K4_UNIT_TILES and units == -(-rt // 32) * ngf
+        assert kf == 1 or units * kf <= kernels.WARPS
+        cover = [0] * (-(-rt // 32) * ntg * ks)
+        for u in range(units):
+            rp, ng = divmod(u, ngf)
+            for nt in range(ng * ntg // ngf, (ng + 1) * ntg // ngf):
+                for part in range(kf):
+                    for k in range(part * ks // kf, (part + 1) * ks // kf):
+                        cover[(rp * ntg + nt) * ks + k] += 1
+        assert cover == [1] * len(cover)
+        # a power of 2 that would not fit twice: 8 warps, a k-step a warp at least
+        assert units >= kernels.WARPS or 2 * kf * units > kernels.WARPS or 2 * kf > ks
 
 
 # --- CUDA: the four K4 kernels against their plain versions ---------------------
@@ -671,3 +763,55 @@ def test_k4_kernels_repeat_bit_for_bit_on_card(cuda):
         a, b = fn(*args, DT), fn(*args, DT)
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y), fn.__name__
+
+
+def _check_k4_on_card(x, u, ir, s):
+    """K4-fwd and K4-vg (no chain axis) against their plain versions: the
+    value 1e-5 relative, dU 1e-5 relative L2, dI_rest rtol=1e-5 /
+    atol=1e-6 (float32 sums in another order); one launch a call."""
+    before = dict(kernels.LAUNCHES)
+    ll, du, dir_ = fused_ll_value_and_grad(x, u, ir, s, DT)
+    v = fused_ll_value(x, u, ir, s, DT)
+    torch.cuda.synchronize()
+    after = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert after == {**dict.fromkeys(before, 0), "fwd_bf16": 1, "vg_bf16": 1}, after
+    ll_r, du_r, dir_r = fused_poisson_ll_reference(x, u, ir, s, DT)
+    for got in (ll, v):
+        torch.testing.assert_close(got, ll_r, rtol=1e-5, atol=0.0)
+    assert float(torch.linalg.norm(du - du_r) / torch.linalg.norm(du_r)) <= 1e-5
+    torch.testing.assert_close(dir_, dir_r, rtol=1e-5, atol=1e-6)
+    return dir_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "T,NB,N,clip_bins",
+    [
+        (3001, 500, 100, 40),  # N=100 in its four column groups, clipped bins
+        (999, 77, 9, 0),  # NB not a multiple of 16 (nor of 8), odd T·N
+        (2001, 9, 1, 0),  # NB = 9: one dU m-tile, its k-steps over the 8 warps
+        (3, 135, 27, 0),  # T shorter than one tile: the forward's k-steps split
+        (5, 500, 100, 0),  # the same in column groups
+        (240_000, 50, 10, 0),  # config 2: dU in one warp's rows, its k-steps over the 8 warps
+        (60_000, 135, 27, 200),  # the flagship, clipped bins
+    ],
+)
+def test_k4_alone_matches_reference_on_card(cuda, T, NB, N, clip_bins):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, u, ir, s = _torch(*_inputs(T, NB, N, 1, seed=3, i_shift=-3.0 if T > 1000 else 1.0, clip_bins=clip_bins),
+                         device=cuda)
+    dir_ = _check_k4_on_card(x, u[0].contiguous(), ir[0].contiguous(), s)
+    if clip_bins:
+        assert int((dir_ == 0).sum()) >= clip_bins
+
+
+@pytest.mark.cuda
+def test_k4_repeats_bit_for_bit_at_n100_on_card(cuda):
+    """K4 in four column groups and, for K4-vg, k-sliced partial rows: two
+    calls give the same bits."""
+    x, u, ir, s = _torch(*_inputs(20_000, 500, 100, 1, i_shift=-3.0), device=cuda)
+    u, ir = u[0].contiguous(), ir[0].contiguous()
+    for fn in (fused_ll_value_and_grad, fused_ll_value):
+        a, b = fn(x, u, ir, s, DT), fn(x, u, ir, s, DT)
+        for p, q in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(p, q), fn.__name__

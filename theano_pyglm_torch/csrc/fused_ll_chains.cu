@@ -103,7 +103,6 @@
 namespace {
 
 constexpr int kMaxChains = 8;   // ops/kernels.py MAX_CHAINS
-constexpr int kWarpTiles = 16;  // dU mma tiles a warp holds, at most (ops/kernels.py WARP_TILES)
 constexpr int kUnitTiles = 8;   // n-tiles of a forward unit, at most (ops/kernels.py UNIT_TILES)
 constexpr int kValueTiles = 4;  // the value instance's: its units span two m-tiles (VALUE_TILES)
 
@@ -165,45 +164,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // float error is under (col / N + 1) · 2^-23, so this is exact while
 // C·N < 2^16 (the launcher's limit).
 __device__ __forceinline__ int chain_of(int col, float inv_n) { return (int)(((float)col + 0.5f) * inv_n); }
-
-// The warps that share a grid_y slice's dU items: the fewest of 1, 2, 4, 8
-// whose runs hold at most kWarpTiles items each (ops/kernels.py
-// vg_chains_items); the other warps of a group of kWarps split its k-steps.
-__host__ __device__ constexpr int work_warps(int items) {
-    return items <= kWarpTiles ? 1 : items <= 2 * kWarpTiles ? 2 : items <= 4 * kWarpTiles ? 4 : kWarps;
-}
-
-// out[c] = Σ over n_rows partial rows of part[·][c], for the float4
-// columns c < w4 that this block owns (a slice of them per block), in a
-// fixed order: sum_columns (fused_ll_common.cuh) over n_rows rows.
-__device__ void sum_part_rows(const float* part, float* out, int w4, int n_rows, float* s_join) {
-    const int tid = threadIdx.x;
-    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
-    const int c_lo = (int)((long long)b * w4 / nb);
-    const int C = (int)((long long)(b + 1) * w4 / nb) - c_lo;
-    const float4* p4 = reinterpret_cast<const float4*>(part) + c_lo;
-    float4* out4 = reinterpret_cast<float4*>(out) + c_lo;
-    if (C == 0) return;
-    if (2 * C > kThreads || C == 1) {
-        sum_rows(out4, p4, w4, 0, n_rows, C);
-        return;
-    }
-    // P row phases a column, then the phases in order
-    const int P = kThreads / C, cl = tid % C, ph = tid / C;
-    float4* red = reinterpret_cast<float4*>(s_join);
-    if (ph < P) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-        for (int r = ph; r < n_rows; r += P) add4(acc, __ldcg(p4 + (size_t)r * w4 + cl));
-        red[ph * C + cl] = acc;
-    }
-    __syncthreads();
-    if (tid < C) {
-        float4 acc = red[tid];
-        for (int q = 1; q < P; ++q) add4(acc, red[q * C + tid]);
-        out4[tid] = acc;
-    }
-}
 
 // Grid (grid_x, grid_y): blockIdx.y is the dU slice (the value instance:
 // grid_y = 1). part rows b·KS + k (KS k-slices per blockIdx.x b): [dU

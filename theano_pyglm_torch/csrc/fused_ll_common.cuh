@@ -1,8 +1,9 @@
-// Helpers shared by the fused Poisson-LL kernels (fused_poisson_ll.cu: K1-K3;
-// fused_poisson_ll_bf16.cu: K4): block geometry, cp.async and TMA bulk
-// copies onto an mbarrier, the TF32 tensor-core product, and the
-// fixed-order sums and grid barrier that keep every launch bit-for-bit
-// repeatable. Each source includes it once; everything is in an anonymous
+// Helpers shared by the fused Poisson-LL kernels (fused_poisson_ll.cu: K1,
+// K2; fused_poisson_ll_bf16.cu: K4-fwd, K4-vg; fused_ll_chains.cu: the four
+// chain kernels): block geometry, cp.async and TMA bulk copies onto an
+// mbarrier, the TF32 tensor-core product, the dealing of dU's mma tiles to
+// warps, and the fixed-order sums and grid barrier that keep every launch
+// bit-for-bit repeatable. Each source includes it once; everything is in an anonymous
 // namespace, so each library keeps its own copy.
 
 #pragma once
@@ -16,6 +17,7 @@ namespace {
 constexpr int kThreads = 256;  // ops/kernels.py THREADS
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDevices = 64;
+constexpr int kWarpTiles = 16;  // dU mma tiles a warp holds, at most (ops/kernels.py WARP_TILES)
 
 __host__ __device__ constexpr int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -189,6 +191,46 @@ __device__ void sum_columns(const float* part, float* out, int w4, float* s_join
         float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
         for (int r = ph; r < (int)gridDim.x; r += P) add4(acc, __ldcg(p4 + (size_t)r * w4 + cl));
+        red[ph * C + cl] = acc;
+    }
+    __syncthreads();
+    if (tid < C) {
+        float4 acc = red[tid];
+        for (int q = 1; q < P; ++q) add4(acc, red[q * C + tid]);
+        out4[tid] = acc;
+    }
+}
+
+// The warps that share a grid_y slice's dU items (16 × 8 mma tiles): the
+// fewest of 1, 2, 4, 8 whose runs hold at most kWarpTiles items each
+// (ops/kernels.py vg_chains_items); the other warps of a group of kWarps
+// split its k-steps.
+__host__ __device__ constexpr int work_warps(int items) {
+    return items <= kWarpTiles ? 1 : items <= 2 * kWarpTiles ? 2 : items <= 4 * kWarpTiles ? 4 : kWarps;
+}
+
+// out[c] = Σ over n_rows partial rows of part[·][c], for the float4
+// columns c < w4 that this block owns (a slice of them per block), in a
+// fixed order: sum_columns over n_rows rows.
+__device__ void sum_part_rows(const float* part, float* out, int w4, int n_rows, float* s_join) {
+    const int tid = threadIdx.x;
+    const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
+    const int c_lo = (int)((long long)b * w4 / nb);
+    const int C = (int)((long long)(b + 1) * w4 / nb) - c_lo;
+    const float4* p4 = reinterpret_cast<const float4*>(part) + c_lo;
+    float4* out4 = reinterpret_cast<float4*>(out) + c_lo;
+    if (C == 0) return;
+    if (2 * C > kThreads || C == 1) {
+        sum_rows(out4, p4, w4, 0, n_rows, C);
+        return;
+    }
+    // P row phases a column, then the phases in order
+    const int P = kThreads / C, cl = tid % C, ph = tid / C;
+    float4* red = reinterpret_cast<float4*>(s_join);
+    if (ph < P) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int r = ph; r < n_rows; r += P) add4(acc, __ldcg(p4 + (size_t)r * w4 + cl));
         red[ph * C + cl] = acc;
     }
     __syncthreads();

@@ -70,7 +70,11 @@ chain (``csrc/fused_poisson_ll_bf16.cu``), K4-fwd-chains and K4-vg-chains
 for every group of chains, a group of one included, so that a chain axis of
 1 keeps the chain semantics (the bfloat16 instances of the chain source).
 The plain versions widen a bfloat16 X_f exactly to U's dtype and, on a
-chain axis, round U and dI.
+chain axis, round U and dI. K4-fwd and K4-vg hold U split into TF32 big and
+small parts in shared memory, so they take column groups of their own
+(:func:`k4_group_cols`): the n-tiles cut as evenly as they can be into the
+fewest groups whose split U fits beside 32-bin tiles (N = 100 at NB = 500:
+four).
 """
 
 from __future__ import annotations
@@ -96,6 +100,10 @@ __all__ = [
     "LaunchPlan",
     "chain_groups",
     "du_tiles",
+    "k4_du_slices",
+    "k4_du_warps",
+    "k4_group_cols",
+    "k4_vg_items",
     "mma_tiles",
     "vg_chains_items",
     "vg_chains_k_slices",
@@ -120,6 +128,9 @@ MAX_CHAINS = 8  # K3's and K4-chains' chains, at most (kMaxChains in the sources
 WARP_TILES = 16  # K3-vg, K4-vg-chains: dU mma tiles a warp holds, at most (kWarpTiles)
 UNIT_TILES = 8  # K3-vg, K4-vg-chains: n-tiles of a forward unit, at most (kUnitTiles)
 VALUE_TILES = 4  # K3-fwd, K4-fwd-chains: n-tiles of a forward unit of two m-tiles, at most (kValueTiles)
+K4_UNIT_TILES = 2  # K4-fwd, K4-vg: n-tiles of a forward unit of two m-tiles, at most (kUnitTiles)
+K4_GROUP_TILES = 4  # K4-fwd, K4-vg: n-tiles of a column group, at most (kGroupTiles)
+K4_MIN_TILE = 32  # K4's column groups keep room for tiles of this many bins where they can
 # Launches of each kernel on a CUDA device; the CPU path does not count.
 # K4 (a bfloat16 X_f) counts under the float32 kernel's key with "_bf16".
 LAUNCHES = {"fwd": 0, "vg": 0, "fwd_chains": 0, "vg_chains": 0,
@@ -195,7 +206,7 @@ class LaunchPlan(NamedTuple):
     grid_y: int  # K2/K3-vg/K4-vg(-chains): slices of one group's dU work; K1/K3-fwd/K4-fwd(-chains): 1
     smem_bytes: int  # dynamic shared memory of one block
     groups: int  # G, the column groups of U (1: all N columns in every block; K3, K4-chains: 1)
-    group_cols: int  # columns of a group: N when G = 1, else a multiple of 8
+    group_cols: int  # columns of a group (K4: of its widest): N when G = 1, else a multiple of 8
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -236,13 +247,55 @@ def _x_words_bf16(NB: int, tile_t: int) -> int:
     return _ceil_to(_ceil_to(tile_t, 16) * NB + 16, 8) // 2
 
 
-def _smem_bytes_bf16(NB: int, N: int, tile_t: int) -> int:
+def _k4_groups(N: int, W: int) -> int:
+    """K4's column groups for a widest group of W columns: the N columns'
+    NT n-tiles cut into G groups as even as they can be (group q: n-tiles
+    q·NT/G to (q + 1)·NT/G), W = N for one group, else 8·ceil(NT / G)
+    (n_groups in ``fused_poisson_ll_bf16.cu``)."""
+    return -(-(-(-N // 8)) // -(-W // 8))
+
+
+def _k4_fwd_split(RT: int, ntg: int, ksteps: int) -> tuple:
+    """K4's forward of a tile of RT rows and ntg n-tiles of ``ksteps``
+    k-steps: (n-groups, units, k-split, a unit's widest n-tiles). Units are
+    32 bins × up to K4_UNIT_TILES n-tiles, in the fewest n-groups that give
+    each warp a unit where the n-tiles allow, else in the widest units;
+    where the units are fewer than the warps, that many warps (a power of 2,
+    at most one a k-step) split each unit's k-steps and its epilogue
+    (fwd_groups, fwd_k_split in the source)."""
+    rp = -(-RT // 32)
+    ngf = -(-ntg // K4_UNIT_TILES)
+    if rp * ntg >= WARPS:
+        ngf = max(ngf, -(-WARPS // rp))
+    units = rp * ngf
+    most = 1 if units >= WARPS else min(WARPS // units, ksteps)
+    kf = 8 if most >= 8 else 4 if most >= 4 else 2 if most >= 2 else 1
+    return ngf, units, kf, -(-ntg // ngf)
+
+
+def _k4_join_words(RT: int, ntg: int, ksteps: int) -> int:
+    """The forward's join where K4 splits a unit's k-steps: a slot a unit and
+    k-slice, 8 values a lane and n-tile of the widest unit (join_words)."""
+    _, units, kf, width = _k4_fwd_split(RT, ntg, ksteps)
+    return 0 if kf == 1 else units * kf * 32 * 8 * width
+
+
+def _smem_bytes_bf16(NB: int, N: int, tile_t: int, W: int = None) -> int:
     """Mirror of smem_bytes_bf16 in ``fused_poisson_ll_bf16.cu`` (K4-fwd,
-    K4-vg), in 32-bit words: U in float32 rows as K1/K2 hold it, two stages
-    of the bfloat16 X_f tile and the I_rest and S spans, and the join
-    scratch, for N columns (a column group's width)."""
-    stage = _x_words_bf16(NB, tile_t) + 2 * _n_span(N, tile_t)
-    return 4 * (_ceil_to(NB, 8) * _b_stride(N) + 2 * stage + 8 * THREADS)
+    K4-vg) for N columns in groups whose widest is W (default N, one
+    group), in 32-bit words: U split into TF32 big and small parts, a uint4
+    a lane, k-step of 8 and n-tile of the widest group; two stages of the
+    bfloat16 X_f tile (at least 16 values after its rows) and the I_rest
+    and S spans; the forward's join where a unit's k-steps are split."""
+    W = N if W is None else W
+    nt, G, ks8, RT = -(-N // 8), _k4_groups(N, W), -(-NB // 8), _ceil_to(tile_t, 16)
+    hi, lo = -(-nt // G), nt // G
+    stage = _x_words_bf16(NB, tile_t) + 2 * _n_span(W, tile_t)
+    join = max(_k4_join_words(RT, hi, ks8), _k4_join_words(RT, lo, ks8))
+    # after the tiles K4-vg's k-slices join their dU rows there
+    rs = -(-(-(-NB // 16)) // k4_du_slices(NB, W))
+    du = WARPS // k4_du_warps(rs, hi) * min(16 * rs, NB) * W
+    return 4 * max(ks8 * hi * 128 + 2 * stage + join, du)
 
 
 def _smem_bytes_chains(NB: int, N: int, C: int, tile_t: int, bf16: bool, grad: bool) -> int:
@@ -271,7 +324,7 @@ DU_TILE = (9, 7)
 
 
 def du_tiles(NB: int, N: int) -> int:
-    """K2's (K4-vg's) dU in DU_TILE micro-tiles, one per thread of a
+    """K2's dU in DU_TILE micro-tiles, one per thread of a
     grid_y slice."""
     return -(-NB // DU_TILE[0]) * -(-N // DU_TILE[1])
 
@@ -332,6 +385,61 @@ def _unit_rows_cap(N: int, C: int, grad: bool = True) -> int:
     return rows * max(1, WARPS // ngf)
 
 
+def k4_group_cols(NB: int, N: int) -> int:
+    """K4's widest column group (N for one group): the fewest even groups of
+    at most K4_GROUP_TILES n-tiles whose U, split, fits beside two stages of
+    K4_MIN_TILE-bin tiles, else of 8-bin tiles. Raises ValueError when not
+    even one n-tile fits."""
+    nt = -(-N // 8)
+    for tile in (K4_MIN_TILE, 8):
+        for G in range(-(-nt // K4_GROUP_TILES), nt + 1):
+            W = N if G == 1 else 8 * -(-nt // G)
+            if _smem_bytes_bf16(NB, N, tile, W) <= SMEM_LIMIT:
+                return W
+    raise ValueError(
+        f"NB={NB}, N={N} needs {_smem_bytes_bf16(NB, N, 8, min(N, 8))} B of shared memory even in "
+        f"column groups of 8 (> {SMEM_LIMIT})"
+    )
+
+
+def k4_du_warps(rows: int, ntw: int) -> int:
+    """K4-vg's item-warps for a grid_y slice of ``rows`` dU m-rows of ntw
+    n-tiles: the fewest of 1, 2, 4, 8 whose even shares of the rows hold at
+    most WARP_TILES items (du_warps in the source); the other warps of a
+    group of WARPS split the tile's k-steps, their sums joined in shared
+    memory after the tiles."""
+    return next((w for w in (1, 2, 4) if -(-rows // w) * ntw <= WARP_TILES), WARPS)
+
+
+def k4_du_slices(NB: int, W: int) -> int:
+    """K4-vg's grid_y: the fewest slices of the m-rows whose 8 warps hold
+    the widest group's items, WARP_TILES a warp at most."""
+    return -(-(-(-NB // 16)) // (WARPS * (WARP_TILES // -(-W // 8))))
+
+
+def k4_vg_items(NB: int, N: int, W: int, grid_y: int) -> list:
+    """Mirror of K4-vg's dU work: for each column group, grid_y slice and
+    warp, (its group, its k-slice, its (m-tile, n-tile) items, the n-tile
+    counted in the group). A slice's m-rows (each the group's ntg items) are
+    cut evenly over IW item-warps (:func:`k4_du_warps` of the widest group);
+    warp w takes the rows of item-warp w % IW and the tile's k-steps ≡ w //
+    IW (mod WARPS / IW)."""
+    nt, G, mt = -(-N // 8), _k4_groups(N, W), -(-NB // 16)
+    rs = -(-mt // grid_y)
+    iw_count = k4_du_warps(rs, -(-nt // G))
+    runs = []
+    for q in range(G):
+        ntg = (q + 1) * nt // G - q * nt // G
+        for y in range(grid_y):
+            s_lo = y * rs
+            s_n = max(0, min(rs, mt - s_lo))
+            for w in range(WARPS):
+                iw = w % iw_count
+                m_lo, m_hi = s_lo + iw * s_n // iw_count, s_lo + (iw + 1) * s_n // iw_count
+                runs.append((q, w // iw_count, [(m, n) for m in range(m_lo, m_hi) for n in range(ntg)]))
+    return runs
+
+
 def _group_cols(NB: int, N: int, fits) -> int:
     """Columns of a group for the least G whose group fits at the narrowest
     tile (``fits(W)``: a block's shared memory for W columns there): N
@@ -388,8 +496,10 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     1 ≤ C ≤ MAX_CHAINS chains. ``grad``: the value-and-gradient kernel,
     else the value-only one.
 
-    K1/K2 and K4: G is the least number of column groups whose U slice and
-    two stages of the narrowest tile fit in SMEM_LIMIT (:func:`_group_cols`).
+    K1/K2: G is the least number of column groups whose U slice and two
+    stages of the narrowest tile fit in SMEM_LIMIT (:func:`_group_cols`); K4
+    its own even groups of at most K4_GROUP_TILES n-tiles
+    (:func:`k4_group_cols`).
     The chain kernels take one group: all C·N columns of U and C I_rest
     spans beside the narrowest tile, else ValueError (:func:`chain_groups`
     cuts the chains so that each group fits K3). The tile is the widest
@@ -398,9 +508,9 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     :func:`_unit_rows_cap`, 256 bins at most) whose two stages fit beside
     the group, then
     narrowed so that every block takes the same number of tiles, give or
-    take one. K2 and K4-vg split a group's dU micro-tiles over grid_y slices
-    of THREADS; K3-vg and K4-vg-chains their dU mma tiles over slices of
-    WARPS · WARP_TILES. Raises ValueError when not even a group of 8
+    take one. K2 splits a group's dU micro-tiles over grid_y slices of
+    THREADS; K3-vg and K4-vg-chains their dU mma tiles over slices of
+    WARPS · WARP_TILES; K4-vg its m-rows (:func:`k4_du_slices`). Raises ValueError when not even a group of 8
     columns fits at the narrowest tile, when one time tile's blocks
     outnumber the SMs, or when C is outside the kernel's range.
     """
@@ -427,16 +537,24 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
             )
         W, tile_cap = N, _unit_rows_cap(N, C, grad)
         slices = -(-mma_tiles(NB, N, C) // (WARPS * WARP_TILES))
-    else:
-        # K1/K2 (a float32 X_f, no chain axis or one chain), K4 (bfloat16, no chain axis)
-        step = 4 if x_bytes == 4 else 8
-        smem_of = _smem_bytes if x_bytes == 4 else _smem_bytes_bf16
+    elif x_bytes == 4:
+        # K1/K2 (a float32 X_f, no chain axis or one chain)
+        step = 4
 
         def smem(W, tile):
-            return smem_of(NB, W, tile)
+            return _smem_bytes(NB, W, tile)
 
         W = _group_cols(NB, N, lambda W: smem(W, step))
         slices = -(-du_tiles(NB, W) // THREADS)
+    else:
+        # K4 (bfloat16, no chain axis): its own column groups
+        step = 8
+
+        def smem(W, tile):
+            return _smem_bytes_bf16(NB, N, tile, W)
+
+        W = k4_group_cols(NB, N)
+        slices = k4_du_slices(NB, W)
     groups = -(-N // W)
     tile_max = step
     while tile_max + step <= tile_cap and smem(W, tile_max + step) <= SMEM_LIMIT:

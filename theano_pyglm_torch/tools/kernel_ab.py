@@ -11,8 +11,9 @@ K3-vg on those chains where the checkout has them), warm and with the 50 MB
 L2 flushed, timed as ``chip_smoke.py`` times them. With ``--bf16`` the design X_f is rounded to
 bf16 and the same calls time the four K4 kernels (K4-fwd, K4-vg,
 K4-fwd-chains, K4-vg-chains); a checkout without them reports the shape as
-not planned. ``--only NAME`` (repeatable) times just the kernels whose name
-starts with one of the NAMEs (e.g. ``--only K3-fwd``). Run from the
+not planned. ``--only NAME`` (repeatable) times just the kernels named
+NAME, with what follows their name after a space (e.g. ``--only K4-fwd``:
+K4-fwd and K4-fwd on the chains in turn, not K4-fwd-chains). Run from the
 repository root on the GPU machine:
 
     python3 theano_pyglm_torch/tools/kernel_ab.py DIR [DIR ...] [--shape T,NB,N ...] [--chains 4] [--bf16] [--only K3-fwd]
@@ -83,7 +84,7 @@ def _one(tree: str, shapes, chains: int, bf16: bool, only) -> None:
             calls[f"{many[0]}{tag}"] = lambda: kernels.fused_ll_value_chains(x, u, ir, s, 1e-3)
             calls[f"{many[1]}{tag}"] = lambda: kernels.fused_ll_value_and_grad_chains(x, u, ir, s, 1e-3)
         for k, fn in calls.items():
-            if only and not k.startswith(tuple(only)):
+            if only and not any(k == name or k.startswith(name + " ") for name in only):
                 continue
             try:
                 out["times"][f"{k} {shape}"] = [_median_ms(fn), _median_ms(fn, flush)]
@@ -100,7 +101,7 @@ def main() -> None:
     p.add_argument("--shape", action="append", help="T,NB,N (repeatable); default: " + " ".join(SHAPES))
     p.add_argument("--chains", type=int, default=4, help="K3's (K4-chains') chains")
     p.add_argument("--bf16", action="store_true", help="a bf16 design: time the K4 kernels")
-    p.add_argument("--only", action="append", help="time only the kernels whose name starts with this (repeatable)")
+    p.add_argument("--only", action="append", help="time only the kernels of this name (repeatable)")
     p.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
     shapes = args.shape or list(SHAPES)

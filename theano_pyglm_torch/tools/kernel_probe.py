@@ -11,7 +11,10 @@ Without ``--chains`` it probes K1 and K2 (``csrc/fused_poisson_ll.cu``) at
 the flagship shape (T=60,000, NB=135, N=27), plus the full kernels at a few
 shorter T to separate the per-call cost from the per-tile cost;
 ``--shape T,NB,N`` probes another shape instead (without the shorter T),
-after printing each kernel's launch plan there. With ``--chains C`` it
+after printing each kernel's launch plan there. ``--bf16`` probes K4-fwd
+and K4-vg (``csrc/fused_poisson_ll_bf16.cu``) the same way, on the same X_f
+rounded to bf16 (K4-fwd with the variants that mean something for a value
+kernel). With ``--chains C`` it
 probes the four chain-batched kernels on C chains (``--kernels`` picks
 some): K3-fwd and K3-vg on a float32 X_f, K4-fwd-chains and K4-vg-chains on
 the same X_f rounded to bf16, each built from the source of the tree that
@@ -22,7 +25,7 @@ of the repository (its sources, wrappers and launch plans), e.g. the parent
 commit unpacked under the ignored ``_archive/``. Run from the repository
 root on the GPU machine:
 
-    python3 theano_pyglm_torch/tools/kernel_probe.py [--shape 60000,5,1] [--chains 4 [--kernels K3-fwd,...]] [--tree DIR]
+    python3 theano_pyglm_torch/tools/kernel_probe.py [--shape 60000,5,1] [--bf16] [--chains 4 [--kernels K3-fwd,...]] [--tree DIR]
 """
 
 import argparse
@@ -37,7 +40,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FLAGS = ("NO_COPY", "NO_FWD", "NO_BWD", "NO_EPI", "EXIT", "PLAIN_LAUNCH", "NO_TILES", "NO_DIOUT", "PROLOGUE",
-         "NO_ROWS", "NO_SUMS", "NO_U", "NO_RELAYOUT", "NO_UCOPY", "NO_SPLIT", "ONE_PRODUCT")
+         "NO_ROWS", "NO_SUMS", "NO_U", "NO_RELAYOUT", "NO_UCOPY", "NO_SPLIT", "ONE_PRODUCT", "SPLIT_U")
 VARIANTS = {
     "full": (),
     "exit": ("EXIT",),  # returns at once: launch and timing overhead
@@ -64,6 +67,9 @@ VARIANTS = {
     # off (three products of unsplit operands), or one product of three
     "no_split": ("NO_SPLIT",),
     "one_product": ("ONE_PRODUCT",),
+    # where the forward reads U pre-split into TF32 big and small parts:
+    # U split on every k-step instead (the pre-split slots then hold U itself)
+    "split_u": ("SPLIT_U",),
 }
 # a tile of no rows after each block's first: nothing to copy, the barriers still complete
 _NO_COPY = ("        const int t0 = tile * tile_t, rows = min(tile_t, T - t0);\n",
@@ -135,6 +141,39 @@ EDITS = {
         *_no_epi("part_v", "const int ch = kChains ? col / N : 0;", "const int e = r * rs + col;"),
         _prologue("    // K4-vg's dU: kMtM × kMtN micro-tiles"),
         ("    sum_columns(part, out, w4, s_join);", "    if (!PROBE_NO_SUMS) sum_columns(part, out, w4, s_join);"),
+        # the tree whose K4 holds U split in shared memory and dU on the tensor cores
+        ("const int KSV = KS8;", "const int KSV = PROBE_NO_FWD ? 0 : KS8;"),
+        ("            float ir_v[E], s_v[E];\n",
+         "            if (PROBE_NO_EPI) {  // the products' sums kept live\n"
+         "                float v = 0.f;\n#pragma unroll\n"
+         "                for (int q = 0; q < E; ++q) v += q < n_m ? am[q] : 0.f;\n"
+         "                ll += v;\n                return;\n            }\n"
+         "            float ir_v[E], s_v[E];\n"),
+        ("const int kb_end = (rows + 7) >> 3;", "const int kb_end = PROBE_NO_BWD ? 0 : (rows + 7) >> 3;"),
+        _prologue("    // the forward's units (32 bins"),
+        ("    sum_part_rows(part, out", "    if (!PROBE_NO_SUMS) sum_part_rows(part, out"),
+        ("    const bool staged = whole && UT + 4 <= SW;", "    const bool staged = !PROBE_NO_U && whole && UT + 4 <= SW;"),
+        ("const int n_frag = KS8 * ntg * 32;", "const int n_frag = PROBE_NO_U ? 0 : KS8 * ntg * 32;"),
+        ("split_tf32(lo ? dk[j * 8] : 0.f, bb[j][0], bs[j][0]);\n"
+         "                            split_tf32(hi ? dk[j * 8 + 4 * rs] : 0.f, bb[j][1], bs[j][1]);",
+         "if (PROBE_NO_SPLIT) {  // dI's B operand unsplit\n"
+         "    bb[j][0] = __float_as_uint(lo ? dk[j * 8] : 0.f), bb[j][1] = __float_as_uint(hi ? dk[j * 8 + 4 * rs] : 0.f);\n"
+         "    bs[j][0] = bs[j][1] = 0u;\n"
+         "} else {\n"
+         "split_tf32(lo ? dk[j * 8] : 0.f, bb[j][0], bs[j][0]);\n"
+         "split_tf32(hi ? dk[j * 8 + 4 * rs] : 0.f, bb[j][1], bs[j][1]);\n}"),
+        # U laid out unsplit and split on every k-step
+        ("                    split_tf32(v[i][0], b.x, b.z);\n                    split_tf32(v[i][1], b.y, b.w);",
+         "                    if (PROBE_SPLIT_U) b = make_uint4(__float_as_uint(v[i][0]), __float_as_uint(v[i][1]), 0u, 0u);\n"
+         "                    else split_tf32(v[i][0], b.x, b.z), split_tf32(v[i][1], b.y, b.w);"),
+        ("    mma_tf32(c, a, b.z, b.w);\n    mma_tf32(c, a, b.x, b.y);",
+         "    uint4 q = b;\n"
+         "    if (PROBE_SPLIT_U) split_tf32(__uint_as_float(b.x), q.x, q.z), split_tf32(__uint_as_float(b.y), q.y, q.w);\n"
+         "    mma_tf32(c, a, q.z, q.w);\n    mma_tf32(c, a, q.x, q.y);"),
+        ("        for (int r = warp; r < r_n; r += kWarps)", "        for (int r = warp; r < (PROBE_NO_ROWS ? 0 : r_n); r += kWarps)"),
+        ("            if (lead_y && whole) copy_out(d_irest", "            if (!PROBE_NO_DIOUT && lead_y && whole) copy_out(d_irest"),
+        ("            if (lead_y && !whole)\n#pragma unroll 4\n",
+         "            if (!PROBE_NO_DIOUT && lead_y && !whole)\n#pragma unroll 4\n"),
     ],
     # the four chain kernels: K3-fwd, K3-vg, K4-fwd-chains, K4-vg-chains
     "fused_ll_chains.cu": _COMMON + [
@@ -180,7 +219,7 @@ EDITS = {
 # the variants that mean something for a value-only kernel (no dU, no dI)
 VALUE_VARIANTS = ("full", "exit", "exit_plain", "no_copy", "no_fwd", "no_epi", "copy_only", "empty", "prologue",
                   "no_tiles", "no_tiles_sums", "prologue_no_u", "no_tiles_no_u", "prologue_no_relayout",
-                  "prologue_no_ucopy", "no_split", "one_product")
+                  "prologue_no_ucopy", "no_split", "one_product", "split_u")
 FLAGSHIP, DT = (60_000, 135, 27), 1e-3
 
 
@@ -272,22 +311,31 @@ def _card() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def probe_one_chain(T, NB, N, card, out_dir) -> None:
-    """K1/K2 with each part off in turn."""
+def probe_one_chain(T, NB, N, card, out_dir, bf16=False) -> None:
+    """K1/K2 (``bf16``: K4-fwd/K4-vg on the X_f rounded to bf16) with each
+    part off in turn."""
     from theano_pyglm_torch.ops import cuda_loader, kernels
 
-    libs = build(cuda_loader.SOURCE, out_dir)
+    source = cuda_loader.SOURCE_BF16 if bf16 else cuda_loader.SOURCE
+    libs = build(source, out_dir)
     r = np.random.RandomState(0)
     ops = [torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous() for a in
            (0.1 * r.randn(T, NB), 0.3 * r.randn(NB, N), r.randn(T, N) - 3.0, r.poisson(0.02, (T, N)))]
+    if bf16:
+        ops[0] = ops[0].to(torch.bfloat16)
     flush = torch.empty(40 * 2**20, dtype=torch.float32, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for k, grad in (("K1", False), ("K2", True)):
-        print(f"{k} at T={T}, NB={NB}, N={N}: {kernels.launch_plan(T, NB, N, sms, grad)}", flush=True)
+    names = (("K4-fwd", "K4-vg") if bf16 else ("K1", "K2"))
+    for k, grad in zip(names, (False, True)):
+        plan = kernels.launch_plan(T, NB, N, sms, grad, x_bytes=ops[0].element_size())
+        print(f"{k} at T={T}, NB={NB}, N={N} ({source.name}): {plan}", flush=True)
     for name, lib in libs.items():
-        with _Swapped(cuda_loader, cuda_loader.SOURCE, lib):
+        with _Swapped(cuda_loader, source, lib):
             row = [f"{name:10s}"]
-            for k, fn in (("K1", kernels.fused_ll_value), ("K2", kernels.fused_ll_value_and_grad)):
+            for k, fn in zip(names, (kernels.fused_ll_value, kernels.fused_ll_value_and_grad)):
+                if fn is kernels.fused_ll_value and name not in VALUE_VARIANTS:
+                    row.append(f"{k} -")
+                    continue
                 call = lambda fn=fn: fn(*ops, DT)  # noqa: E731
                 row.append(f"{k} warm {median_us(call):7.1f} us cold {median_us(call, flush):7.1f} us")
             print(" | ".join(row) + f"  [{card}]", flush=True)
@@ -296,7 +344,7 @@ def probe_one_chain(T, NB, N, card, out_dir) -> None:
                     short = [t[:tt].contiguous() if t.shape[0] == T else t for t in ops]
                     k1 = median_us(lambda: kernels.fused_ll_value(*short, DT))
                     k2 = median_us(lambda: kernels.fused_ll_value_and_grad(*short, DT))
-                    print(f"  T={tt}: K1 warm {k1:7.1f} us, K2 warm {k2:7.1f} us", flush=True)
+                    print(f"  T={tt}: {names[0]} warm {k1:7.1f} us, {names[1]} warm {k2:7.1f} us", flush=True)
 
 
 CHAIN_KERNELS = {  # name: (LAUNCHES key, gradient, bf16 X_f)
@@ -344,6 +392,7 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", default=",".join(map(str, FLAGSHIP)), help="T,NB,N")
     p.add_argument("--chains", type=int, default=0, help="probe the chain kernels on this many chains")
+    p.add_argument("--bf16", action="store_true", help="without --chains: probe K4-fwd and K4-vg")
     p.add_argument("--kernels", default=",".join(CHAIN_KERNELS),
                    help="with --chains: which of " + ", ".join(CHAIN_KERNELS))
     p.add_argument("--tree", default=REPO, help="the checkout whose kernels are probed")
@@ -360,7 +409,7 @@ def main() -> None:
     if args.chains:
         probe_chains(T, NB, N, args.chains, card, out_dir, args.kernels.split(","))
     else:
-        probe_one_chain(T, NB, N, card, out_dir)
+        probe_one_chain(T, NB, N, card, out_dir, bf16=args.bf16)
 
 
 if __name__ == "__main__":
