@@ -142,6 +142,23 @@ Phases, each of which raises on a mismatch or a non-finite value:
    beside the float32 one's in turns. 10c: one batched bf16 sweep against
    C = 1 in turn, each with a chain axis of 1 (the chain semantics, K4-chains
    only), at phase 5's limits.
+11. The multi-GPU layer (theano_pyglm_torch/parallel/, entry.py) at one
+   rank: a process group of one, NCCL on cuda:0 (a local TCP store on a
+   free port). 11a: rgc_flagship.run on a 'chains' mesh with phase 5's
+   population, data, MAP fit, seed and depth: its samples, diagnostics and
+   final states equal phase 5's bit for bit, its launches phase 5's; ms per
+   sweep beside phase 5's. 11b: at phase 3's MAP point on a 'neurons' mesh,
+   make_sharded_value_and_grad (one K2 launch) against the unsharded value
+   and gradient (1e-6 rel.); local_log_likelihood over three blocks of 9
+   neurons, one K2 launch each, against the full log-likelihood (value
+   1e-5 rel., gradient 1e-4 rel. L2); parallel_map_fit from phase 3's init
+   against map_fit's log-joint (1e-5 rel.), one K2 launch an evaluation
+   with a gradient and K1 for each without; value+grad evals/s of the
+   sharded objective beside the unsharded one's in turns. 11c: entry()'s
+   value against the population's log-joint (1e-6 rel.), then
+   dryrun_multichip over the card(s), and the group shut down. Several
+   ranks run on the CPU only (gloo, tests/test_torch_parallel.py): NCCL
+   takes no two ranks on one GPU.
 
 Depths cut to keep the script near 10 minutes once phases 8-9 came (their
 widths, N and T, are not cut; no warmup is cut): the kept sweeps of phase
@@ -163,8 +180,8 @@ K4-chains launch, at any C.
 
 The line before the last two is one JSON object describing the kernels
 K1, K2, K3-fwd and K3-vg (times and errors from phase 2) and the four K4
-(from 10a), with launches summed over the paths of phases 3, 5, 6, 7, 8, 9
-and 10, each of which must have launched at least once; the next the
+(from 10a), with launches summed over the paths of phases 3, 5, 6, 7, 8, 9,
+10 and 11, each of which must have launched at least once; the next the
 card's name and power limit; the last
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
@@ -188,7 +205,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from theano_pyglm_torch import Population, make_model  # noqa: E402
 from theano_pyglm_torch.inference import ars, gibbs  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
-from theano_pyglm_torch.inference.map import cross_validate_lambda, map_fit, sparse_map_fit, split_params  # noqa: E402
+from theano_pyglm_torch.inference.map import (  # noqa: E402
+    cross_validate_lambda, map_fit, sparse_map_fit, split_params, value_and_grad)
 from theano_pyglm_torch.inference.mcmc import SWEEP_STAGES, _glm_theta0, gibbs_sample, make_sweep  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import chain_state, init_mcmc_state, stack_states  # noqa: E402
 from theano_pyglm_torch.inference.mcmc import whitening_factor  # noqa: E402
@@ -639,7 +657,8 @@ def flagship_slice(dev) -> dict:
     require(all(bool(torch.isfinite(v).all()) for v in state.position.values()), "non-finite HMC position")
     require(hmc_vg >= 2 * LEAPFROG_STEPS * HMC_TRANSITIONS, f"K2 launches during HMC: {hmc_vg}")
     require(hmc_fwd >= HMC_TRANSITIONS, f"K1 launches during HMC: {hmc_fwd}")
-    return {"pop": pop, "params": fit, "data": data, "spec": spec, "true": true, "stim": stim}
+    return {"pop": pop, "params": fit, "data": data, "spec": spec, "true": true, "stim": stim, "init": init,
+            "lp_map": lp_map}
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -809,6 +828,7 @@ def gibbs_phase(sl, card: str) -> dict:
     require(err_lj <= 1e-5, f"log-joint rel err {err_lj}")
     require(err_th <= 1e-4, f"Laplace theta* rel err {err_th}")
 
+    sl["phase5"] = {"samples": samples, "diag": diag, "states": states, "launches": launches, "t_run": t_run}
     time_sweeps(pop, data, fit, stack_states(states), card, check_modes=True)
     return launches
 
@@ -2048,6 +2068,227 @@ def bf16_phase(sl, card: str) -> dict:
     return path
 
 
+# --- phase 11 ---------------------------------------------------------------
+
+
+def _rel_grads(got: dict, want: dict) -> float:
+    """The largest rel-L2 error over the leaves of two gradient dicts."""
+    return max(rel_l2(got[k], want[k]) for k in want)
+
+
+def _runs_differ(got, want) -> list:
+    """The leaves in which two (samples, diagnostics, states) of a chains
+    run differ at all; the convergence table compared as a whole."""
+    differ = [k for k in want[0] if not np.array_equal(got[0][k], want[0][k])]
+    differ += [k for k in want[1] if k != "convergence" and not np.array_equal(got[1][k], want[1][k])]
+    if json.dumps(got[1]["convergence"], sort_keys=True) != json.dumps(want[1]["convergence"], sort_keys=True):
+        differ.append("convergence")
+    return differ + [w for w, a, b in _tensor_leaves(got[2], want[2]) if not torch.equal(a, b)]
+
+
+def host_profile(fn, n: int = 20) -> tuple:
+    """({operator: self CPU ms a call}, device ms a call, wall ms a call) of
+    ``n`` calls of fn under torch.profiler (which slows the host; run after
+    the timings)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / n
+    cpu = {e.key: e.self_cpu_time_total / 1e3 / n for e in prof.key_averages()}
+    on_device = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return cpu, on_device, wall
+
+
+def vg_evals_per_sec(vg, params, data, n: int = 100) -> float:
+    """evals_per_sec of phase 4 through ``vg(params, data) -> (value,
+    grads)``, which differentiates in every floating leaf (the
+    neuron-sharded objective's form): each gradient of the continuous block
+    consumed by a tiny update."""
+    q, frozen = split_params(params)
+    q = {k: v.detach().clone() for k, v in q.items()}
+
+    def step():
+        _, grads = vg({**frozen, **q}, data)
+        for k in q:
+            q[k] = q[k] + 1e-9 * grads[k]
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def multi_gpu_phase(sl, card) -> dict:
+    """11: the multi-GPU layer at one rank (a process group of one, NCCL on
+    cuda:0): 11a the flagship's sampler on a 'chains' mesh against phase 5's
+    run; 11b the neuron-sharded objective, the column split in three blocks
+    and the sharded MAP; 11c the entry module. Returns the launches of its
+    paths."""
+    from theano_pyglm_torch import entry as entry_module
+    from theano_pyglm_torch.entry import _free_port
+    from theano_pyglm_torch.parallel import distributed
+    from theano_pyglm_torch.parallel.map import parallel_map_fit
+    from theano_pyglm_torch.parallel.mesh import chain_mesh, neuron_mesh
+    from theano_pyglm_torch.parallel.neurons import local_log_likelihood, make_sharded_value_and_grad
+
+    t_phase = time.perf_counter()
+    pop, data, true, fit = sl["pop"], sl["data"], sl["true"], sl["params"]
+    dev = pop.device
+    require(distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=dev),
+            "11: no process group of one rank")
+    try:
+        # 11a: phase 5's run, the chains on a mesh of one rank
+        mesh = chain_mesh()
+        require(mesh.size == 1 and mesh.group is not None, f"11a: {mesh}")
+        p5 = sl["phase5"]
+        zero_launches()
+        t0 = time.perf_counter()
+        samples, diag, states, _ = rgc_flagship.run(
+            pop, data, true, fit, seed=SEED, n_chains=GIBBS_CHAINS, n_iters=GIBBS_SAMPLES,
+            n_warmup=GIBBS_WARMUP, thin=1, n_leapfrog=LEAPFROG_STEPS, init_jitter=0.05,
+            chunk_size=GIBBS_SAMPLES, mesh=mesh,
+        )
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        path = dict(kernels.LAUNCHES)
+        sweeps = GIBBS_WARMUP + GIBBS_SAMPLES
+        differ = _runs_differ((samples, diag, states), (p5["samples"], p5["diag"], p5["states"]))
+        log(f"11a flagship sampler on a 'chains' mesh of one NCCL rank, {GIBBS_CHAINS} chains x ({GIBBS_WARMUP} + "
+            f"{GIBBS_SAMPLES}): {t_run:.2f} s, {1e3 * t_run / sweeps:.1f} ms per 4-chain sweep (phase 5: "
+            f"{1e3 * p5['t_run'] / sweeps:.1f}) [{card}]; launches {path}; against phase 5's run, leaves that "
+            f"differ: {differ or 'none'}")
+        require(not differ, f"11a: the mesh run differs from phase 5's in {differ}")
+        require(path == p5["launches"], f"11a: launches {path} against phase 5's {p5['launches']}")
+
+        # 11a: the same run checkpointed every chunk on the mesh, stopped
+        # after warmup sweep 30 and resumed: the mesh run's draws to the bit
+        stop_at = GIBBS_WARMUP - GIBBS_SAMPLES
+
+        class _Stop(Exception):
+            pass
+
+        def stop(phase, done, _states):
+            if phase == "warmup" and done == stop_at:
+                raise _Stop
+
+        kw = dict(n_chains=GIBBS_CHAINS, n_samples=GIBBS_SAMPLES, n_warmup=GIBBS_WARMUP, thin=1,
+                  n_leapfrog=LEAPFROG_STEPS, chunk_size=GIBBS_SAMPLES, init_params=fit, init_jitter=0.05,
+                  mesh=mesh, checkpoint_every=GIBBS_SAMPLES)
+        before = _counted(pop)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                gibbs_sample_chains(pop, data, SEED, checkpoint_dir=d, callback=stop, **kw)
+                require(False, "11a: the checkpointed run was not stopped")
+            except _Stop:
+                pass
+            resumed = gibbs_sample_chains(pop, data, SEED, checkpoint_dir=d, resume=True, **kw)
+            files = sorted(os.listdir(d))
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        launches, _ = _since(pop, before)
+        path = _add(path, launches)
+        differ = _runs_differ(resumed, (samples, diag, states))
+        log(f"11a the mesh run checkpointed every {GIBBS_SAMPLES} sweeps, stopped after sweep {stop_at} and resumed "
+            f"in {t_resume:.2f} s; files {files}; launches {launches}; against the uninterrupted mesh run, leaves "
+            f"that differ: {differ or 'none'} [{card}]")
+        require(not differ, f"11a: the resumed mesh run differs from the uninterrupted one in {differ}")
+
+        # 11b: the neuron-sharded objective at phase 3's MAP point
+        nmesh = neuron_mesh()
+        vg = make_sharded_value_and_grad(pop, nmesh, fit, data)
+        before = _counted(pop)
+        val_s, grads_s = vg(fit, data)
+        launches, ll_evals = _since(pop, before)
+        require(launches == launches_of(vg=1), f"11b: the sharded value+grad launched {launches}")
+        path = _add(path, launches)
+        before = _counted(pop)
+        val_u, grads_u = value_and_grad(lambda p: -pop.log_joint(p, data), fit)
+        require(_since(pop, before)[0] == launches_of(vg=1), "11b: the unsharded value+grad is one K2 launch")
+        err_v, err_g = abs(float(val_s) - float(val_u)) / abs(float(val_u)), _rel_grads(grads_s, grads_u)
+        log(f"11b sharded -log-joint at the MAP point {float(val_s):.6f} against unsharded {float(val_u):.6f}: "
+            f"rel {err_v:.3e}, gradients rel-L2 at most {err_g:.3e}")
+        require(err_v <= 1e-6 and err_g <= 1e-6, f"11b: sharded value {err_v}, gradients {err_g}")
+
+        blocks = [(lo, lo + N // 3) for lo in range(0, N, N // 3)]
+        before = _counted(pop)
+        val_b, grads_b = value_and_grad(
+            lambda p: -sum(local_log_likelihood(pop, p, data, lo, hi) for lo, hi in blocks), fit)
+        launches, _ = _since(pop, before)
+        require(launches == launches_of(vg=len(blocks)), f"11b: the column blocks launched {launches}")
+        path = _add(path, launches)
+        val_f, grads_f = value_and_grad(lambda p: -pop.log_likelihood(p, data), fit)
+        err_v, err_g = abs(float(val_b) - float(val_f)) / abs(float(val_f)), _rel_grads(grads_b, grads_f)
+        log(f"11b the log-likelihood in {len(blocks)} blocks of {N // 3} neurons (one K2 launch each) against the "
+            f"full: value rel {err_v:.3e}, gradients rel-L2 at most {err_g:.3e}")
+        require(err_v <= 1e-5 and err_g <= 1e-4, f"11b: blocks value {err_v}, gradients {err_g}")
+
+        before = _counted(pop)
+        t0 = time.perf_counter()
+        fit_p, lp_p, iters = parallel_map_fit(pop, data, sl["init"], nmesh)
+        torch.cuda.synchronize()
+        t_map = time.perf_counter() - t0
+        launches, ll_evals = _since(pop, before)
+        path = _add(path, launches)
+        err = abs(float(lp_p) - sl["lp_map"]) / abs(sl["lp_map"])
+        log(f"11b parallel_map_fit from phase 3's init: log-joint {float(lp_p):.3f} (map_fit {sl['lp_map']:.3f}, rel "
+            f"{err:.3e}) after {iters} iterations in {t_map:.2f} s; launches {launches}, likelihood evaluations "
+            f"{ll_evals} [{card}]")
+        require(err <= 1e-5, f"11b: parallel_map_fit's log-joint {float(lp_p)} against map_fit's {sl['lp_map']}")
+        _require_all_fused("11b parallel_map_fit", launches, ll_evals)
+
+        # the like-for-like comparison: both differentiate in every floating
+        # leaf (phase 4's metric takes the continuous block only)
+        def vg_u(params, data):
+            return value_and_grad(lambda p: -pop.log_joint(p, data), params)
+
+        rates = [f"phase 4's metric (the continuous block) {evals_per_sec(pop, fit, data):.1f}"]
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            rates.append(f"{name} {vg_evals_per_sec(vg if name == 'sharded' else vg_u, fit, data):.1f}")
+        log(f"11b value+grad evals/s of the -log-joint at N={N} T={T}, every floating leaf, in turns: "
+            f"{', '.join(rates)} [{card}]")
+        # where the sharded evaluation's extra time goes, under torch.profiler
+        cpu_s, dev_s, wall_s = host_profile(lambda: vg(fit, data))
+        cpu_u, dev_u, wall_u = host_profile(lambda: vg_u(fit, data))
+        extra = sorted(set(cpu_s) | set(cpu_u), key=lambda k: cpu_u.get(k, 0.0) - cpu_s.get(k, 0.0))[:10]
+        log(f"11b under torch.profiler, ms a value+grad, sharded / unsharded: wall {wall_s:.3f} / {wall_u:.3f}, "
+            f"host self time summed over operators {sum(cpu_s.values()):.3f} / {sum(cpu_u.values()):.3f}, device "
+            f"{dev_s:.4f} / {dev_u:.4f}; the operators with the most extra host time: "
+            + "; ".join(f"{k} {cpu_s.get(k, 0.0):.4f} / {cpu_u.get(k, 0.0):.4f}" for k in extra) + f" [{card}]")
+
+        # 11c: the entry module
+        fn, (opt, edata) = entry_module.entry(device=dev)
+        zero_launches()
+        val_e, _ = fn(opt, edata)
+        epop, eparams, edata2 = entry_module._flagship(device=dev)
+        with torch.no_grad():
+            lj = float(epop.log_joint(eparams, edata2))
+        launches = dict(kernels.LAUNCHES)
+        path = _add(path, launches)
+        err = abs(float(val_e) - lj) / abs(lj)
+        log(f"11c entry(): log-joint {float(val_e):.4f} against the population's {lj:.4f} (rel {err:.3e}); "
+            f"launches {launches}")
+        require(err <= 1e-6, f"11c: entry's value {float(val_e)} against the log-joint {lj}")
+        require(launches == launches_of(vg=1, fwd=1), f"11c: launches {launches}")
+        t0 = time.perf_counter()
+        entry_module.dryrun_multichip(torch.cuda.device_count())
+        log(f"11c dryrun_multichip({torch.cuda.device_count()}) passed in {time.perf_counter() - t0:.2f} s")
+    finally:
+        distributed.shutdown()
+    log(f"phase 11: {time.perf_counter() - t_phase:.2f} s; launches on its paths {path}")
+    return path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = setup()
@@ -2095,6 +2336,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     log(f"phase 10a: {time.perf_counter() - t0:.2f} s")
     launches = _add(launches, bf16_phase(sl, card))
+    launches = _add(launches, multi_gpu_phase(sl, card))
 
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included [{card}]")
     require(all(launches[k] > 0 for k in KERNELS), f"a kernel was never launched on the main paths: {launches}")

@@ -26,6 +26,7 @@ import theano_pyglm_tpu.utils.diagnostics as diag_j
 import theano_pyglm_tpu.utils.ks as ks_j
 from theano_pyglm_torch.inference.mcmc import chain_state, init_mcmc_state, stack_states
 from theano_pyglm_torch.parallel.chains import _share_adaptation, gibbs_sample_chains
+from theano_pyglm_torch.parallel.mesh import Mesh, chain_mesh
 from theano_pyglm_torch.scripts import rgc_flagship
 from theano_pyglm_tpu.parallel.chains import _share_adaptation as share_j
 from theano_pyglm_tpu.parallel.chains import gibbs_sample_chains as chains_j
@@ -180,8 +181,9 @@ def test_gibbs_sample_chains_small_run():
 def test_init_jitter_and_unported_options(tmp_path):
     """With no sweeps the returned states are the chains' starting points:
     the MAP-like init plus init_jitter·N(0,1) on the continuous leaves (the
-    locations twice, as in JAX), A untouched. mesh raises; checkpoints and
-    resume, which raised until they were ported, run."""
+    locations twice, as in JAX), A untouched. mesh, checkpoints and resume,
+    which raised until they were ported, run: a mesh of one rank starts the
+    same chains, one that does not split the chains evenly raises."""
     pop_t, p_t, d_t = (build_pair_light(tpu.make_model("distance_weighted_model", 5), T=100)[i] for i in (1, 3, 5))
     _, diag, states = gibbs_sample_chains(pop_t, d_t, 1, n_chains=4, n_samples=0, n_warmup=0,
                                           init_params=p_t, init_jitter=0.05)
@@ -192,8 +194,13 @@ def test_init_jitter_and_unported_options(tmp_path):
     assert abs(pooled.std() - 0.05) < 0.005
     assert abs(dev["locs"].std() - 0.05 * math.sqrt(2.0)) < 0.02
     assert "accept_rate_adjacency" not in diag
-    with pytest.raises(NotImplementedError, match="item 14"):
-        gibbs_sample_chains(pop_t, d_t, 1, n_chains=2, n_samples=1, n_warmup=0, mesh=object())
+    _, _, on_mesh = gibbs_sample_chains(pop_t, d_t, 1, n_chains=4, n_samples=0, n_warmup=0,
+                                        init_params=p_t, init_jitter=0.05, mesh=chain_mesh())
+    for s, m in zip(states, on_mesh):
+        for k in p_t:
+            assert torch.equal(s["params"][k], m["params"][k]), k
+    with pytest.raises(ValueError, match="split evenly"):
+        gibbs_sample_chains(pop_t, d_t, 1, n_chains=3, n_samples=1, n_warmup=0, mesh=Mesh("chains", size=2))
     ck = str(tmp_path / "ck")
     for kw in ({"checkpoint_dir": ck}, {"resume": True}):
         samples, _, _ = gibbs_sample_chains(pop_t, d_t, 1, n_chains=2, n_samples=1, n_warmup=0, n_leapfrog=2, **kw)

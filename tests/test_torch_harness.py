@@ -222,3 +222,77 @@ def test_fit_rgc_end_to_end(tmp_path):
     assert m["ks_beats_null"], (m["ks_mean"], m["ks_null_mean"])
     assert np.isfinite(report["mcmc"]["heldout_predictive_loglik"])
     assert os.path.exists(os.path.join(results, "rgc_fit_params.npz"))
+
+
+def test_flagship_figures_from_a_small_flagship_run(tmp_path):
+    """rgc_flagship at N=4, 2 s, 2 chains × (10 + 10) on the CPU, then
+    flagship_figures on its draws: both figures written."""
+    pytest.importorskip("matplotlib")
+    from theano_pyglm_torch.scripts import flagship_figures, rgc_flagship
+
+    results = str(tmp_path)
+    rgc_flagship.main(["--device", "cpu", "--N", "4", "--T_sec", "2", "--n_iters", "10", "--n_warmup", "10",
+                       "--thin", "1", "--n_chains", "2", "-r", results])
+    with np.load(os.path.join(results, "flagship_samples.npz")) as z:
+        assert z["samples/locs"].shape[:2] == (10, 2)
+    written = flagship_figures.main(["-r", results, "--n_loc_draws", "8"])
+    assert [os.path.basename(w) for w in written] == ["network_posterior.png", "latent_locations.png"]
+    for w in written:
+        assert os.path.getsize(w) > 0
+
+
+def test_sbm_seed_robustness_writes_the_jax_scripts_keys(tmp_path):
+    """One key at T=300 and 10 + 10 sweeps of 2 chains: the runs of the JAX
+    script (the key annealed, then the same key with annealing off) under
+    its JSON keys."""
+    from theano_pyglm_torch.scripts import sbm_seed_robustness
+
+    report = sbm_seed_robustness.main(["--device", "cpu", "--keys", "5", "--T", "300", "--n_warmup", "10",
+                                       "--n_samples", "10", "--n_chains", "2", "-r", str(tmp_path)])
+    with open(os.path.join(tmp_path, "sbm_seed_robustness.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(report))
+    assert set(report) == {"n_warmup", "n_samples", "n_chains", "runs", "min_ari_over_all_chains"}
+    assert (report["n_warmup"], report["n_samples"], report["n_chains"]) == (10, 10, 2)
+    assert [(r["master_key"], r["anneal_frac"]) for r in report["runs"]] == [(5, 0.5), (5, 0.0)]
+    for r in report["runs"]:
+        assert set(r) == {"master_key", "anneal_frac", "per_chain_ari_tail_half", "min_chain_ari",
+                          "per_chain_ari_windows", "wall_s"}
+        assert len(r["per_chain_ari_tail_half"]) == 2 and len(r["per_chain_ari_windows"]) == 2
+        assert all(-1.0 <= a <= 1.0 for a in r["per_chain_ari_tail_half"])
+        assert r["min_chain_ari"] == min(r["per_chain_ari_tail_half"])
+    assert report["min_ari_over_all_chains"] == min(r["min_chain_ari"] for r in report["runs"])
+
+
+def test_rgc_flagship_on_two_ranks(tmp_path):
+    """``torchrun --nproc_per_node 2 -m theano_pyglm_torch.scripts.rgc_flagship``
+    with gloo ranks on the CPU (N=4, 1 s, 4 chains × (10 + 10)): the chains
+    split over the ranks, rank 0 alone simulates, fits, prints and writes,
+    and every chain's draws equal those of the one-process run."""
+    import subprocess
+    import sys
+
+    from theano_pyglm_torch.entry import _free_port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
+    flags = ["-m", "theano_pyglm_torch.scripts.rgc_flagship", "--device", "cpu", "--N", "4", "--T_sec", "1",
+             "--n_iters", "10", "--n_warmup", "10", "--thin", "1", "-r"]
+    runs = {
+        "two": [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_port",
+                str(_free_port()), *flags, str(tmp_path / "two")],
+        "one": [sys.executable, *flags, str(tmp_path / "one")],
+    }
+    outs = {name: subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=120)
+            for name, cmd in runs.items()}
+    for out in outs.values():
+        assert out.returncode == 0, out.stderr[-3000:]
+    assert outs["two"].stdout.count("MAP init") == 1  # rank 0 alone fits and prints
+    with open(os.path.join(tmp_path / "two", "flagship_summary.json")) as f:
+        summary = json.load(f)
+    assert summary["ranks"] == 2 and summary["n_chains"] == 4
+    with np.load(tmp_path / "two" / "flagship_samples.npz") as z, \
+            np.load(tmp_path / "one" / "flagship_samples.npz") as one:
+        assert z["samples/W"].shape[:2] == (10, 4) and np.all(np.isfinite(z["samples/W"]))
+        assert sorted(z.files) == sorted(one.files)
+        for k in one.files:
+            np.testing.assert_array_equal(z[k], one[k], err_msg=k)

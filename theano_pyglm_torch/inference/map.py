@@ -26,6 +26,7 @@ import torch
 __all__ = [
     "CONTINUOUS_KEYS",
     "split_params",
+    "value_and_grad",
     "lbfgs_minimize",
     "map_fit",
     "sparse_map_fit",
@@ -45,6 +46,16 @@ def split_params(params: dict, keys: Sequence[str] = CONTINUOUS_KEYS):
     opt = {k: v for k, v in params.items() if k in keys}
     frozen = {k: v for k, v in params.items() if k not in keys}
     return opt, frozen
+
+
+def value_and_grad(fn: Callable, params: dict) -> tuple:
+    """(value, {leaf: gradient}) of the scalar ``fn(params)`` over the
+    floating leaves of ``params``; a leaf ``fn`` does not reach gets zeros."""
+    x = {k: v.detach().requires_grad_(True) for k, v in params.items()
+         if isinstance(v, torch.Tensor) and v.is_floating_point()}
+    val = fn({**params, **x})
+    grads = torch.autograd.grad(val, list(x.values()), allow_unused=True)
+    return val.detach(), {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(x.items(), grads)}
 
 
 def lbfgs_minimize(fun: Callable, x0: dict, max_iter: int = 500, tol: float = 1e-6, window: int = 1):

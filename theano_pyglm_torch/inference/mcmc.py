@@ -467,6 +467,7 @@ class _Store:
         if step is None:
             return None
         saved, gen_states, step = restore_checkpoint(self.directory, step, map_location=self.device)
+        saved, gen_states = self._own(saved, gen_states)
         for g, st in zip(self.generators, gen_states):
             g.set_state(st)
         chunks = []
@@ -476,18 +477,28 @@ class _Store:
                     chunks.append({k: z[k] for k in z.files})
         return step, saved["states"], saved["accept_sum"], chunks
 
+    def _own(self, saved: dict, gen_states: list) -> tuple:
+        """The part of a restored checkpoint that this process runs: all of
+        it (a chain-sharded run takes its block of the chains)."""
+        return saved, gen_states
+
     def persist(self, it: int, kept: dict) -> None:
         os.makedirs(self.directory, exist_ok=True)
         np.savez_compressed(os.path.join(self.directory, f"samples_{it:09d}.npz"), **kept)
 
+    def due(self, prev_it: int, it: int, last: bool) -> bool:
+        """A checkpoint is written at the end of a chunk that crosses a
+        multiple of ``every`` (every chunk when 0) and at the very end."""
+        return last or not self.every or prev_it // self.every != it // self.every
+
     def checkpoint(self, prev_it: int, it: int, last: bool, state, acc_sum) -> None:
-        if self.every and prev_it // self.every == it // self.every and not last:
-            return
-        save_checkpoint(self.directory, it, {"states": state, "accept_sum": acc_sum}, self.generators)
+        if self.due(prev_it, it, last):
+            save_checkpoint(self.directory, it, {"states": state, "accept_sum": acc_sum}, self.generators)
 
 
 def _run(step, state, n_warmup, n_samples, thin, chunk_size, anneal_frac, callback,
-         end_of_warmup=None, after_chunk=None, store: Optional[_Store] = None, resume: bool = False):
+         end_of_warmup=None, after_chunk=None, store: Optional[_Store] = None, resume: bool = False,
+         gather=None):
     """Drive ``step(state, adapt, beta) -> state`` (the chains' batched
     state) through warmup, its adaptation windows and then sampling.
 
@@ -497,10 +508,18 @@ def _run(step, state, n_warmup, n_samples, thin, chunk_size, anneal_frac, callba
     copied to the host (sampling); ``store`` persists them and checkpoints;
     ``callback(phase, sweeps done in the phase, state)`` runs. With
     ``resume`` the run starts from the store's latest checkpoint, if any.
+    ``gather(tree, dim)``: where this process runs a block of the chains (a
+    chain-sharded run), every chain's tensors from this block's, along the
+    chain axis ``dim``; the kept draws, the callback's state and the
+    acceptance are gathered (None: the identity).
     Returns (state, samples {leaf: (n_samples, n_chains, ...) numpy},
     per-chain mean acceptance of the birth–death move over all sweeps, or
     None).
     """
+    if gather is None:
+        def gather(tree, dim=0):
+            return tree
+
     boundaries = warmup_schedule(n_warmup)
     beta_at = anneal_schedule(n_warmup, anneal_frac)
     total = n_samples * thin
@@ -519,14 +538,14 @@ def _run(step, state, n_warmup, n_samples, thin, chunk_size, anneal_frac, callba
         if after_chunk is not None:
             state = after_chunk(it, state, beta)
         if kept is not None:
-            kept = {k: v.cpu().numpy() for k, v in kept.items()}
+            kept = {k: v.cpu().numpy() for k, v in gather(kept, 1).items()}
             host.append(kept)
         if store is not None:
             if kept is not None:
                 store.persist(it, kept)
             store.checkpoint(prev_it, it, it == n_warmup + total, state, acc_sum)
         if callback is not None:
-            callback(phase, done, state)
+            callback(phase, done, gather(state))
         return state
 
     prev = start
@@ -554,7 +573,7 @@ def _run(step, state, n_warmup, n_samples, thin, chunk_size, anneal_frac, callba
             prev, chunk = n_warmup + it + 1, []
     samples = {k: np.concatenate([h[k] for h in host], 0) for k in host[0]} if host else {}
     n_sweeps = n_warmup + total
-    acc = None if acc_sum is None or n_sweeps == 0 else (acc_sum / n_sweeps).cpu().numpy()
+    acc = None if acc_sum is None or n_sweeps == 0 else (gather(acc_sum) / n_sweeps).cpu().numpy()
     return state, samples, acc
 
 

@@ -196,10 +196,11 @@ def combined_weights(w_eff: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 
     U[p·B + b, n] = G[n, p] · w_eff[n, p, b] — the operand of the fused
     Poisson log-likelihood kernels (ops/kernels.py). With a leading chain
-    axis, (C, N_pre·B, N_post).
+    axis, (C, N_pre·B, N_post). Rows of G and w_eff give those
+    postsynaptic neurons' columns (the neuron-sharded likelihood).
     """
-    N = G.shape[-1]
-    return (w_eff * G[..., None]).movedim(-3, -1).reshape(*G.shape[:-2], -1, N)
+    n_post = G.shape[-2]
+    return (w_eff * G[..., None]).movedim(-3, -1).reshape(*G.shape[:-2], -1, n_post)
 
 
 def make_impulse(spec: dict, N: int, B_imp: int) -> CurrentComponent:

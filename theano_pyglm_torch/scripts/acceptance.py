@@ -303,17 +303,20 @@ def config3(device, T=30_000, map_iter=300, n_samples=1000, n_warmup=None):
     }
 
 
-def sample4(pop, data, A_true, seed: int, n_samples: int, n_chains: int, label: str = "config 4"):
+def sample4(pop, data, A_true, seed: int, n_samples: int, n_chains: int, label: str = "config 4",
+            anneal_frac: float = 0.5, n_warmup=None):
     """Config 4's sampler on ``data``: ``n_chains`` chains seeded from
     ``seed``, from the smart init with annealed warmup (the likelihood
-    tempered over the first half of ``n_samples`` warmup sweeps, so (A,
-    filters, y) co-mix before the posterior sharpens), then 2·``n_samples``
+    tempered over the first ``anneal_frac`` of ``n_warmup`` warmup sweeps,
+    by default half of ``n_samples``, so (A, filters, y) co-mix before the
+    posterior sharpens; 0 turns the annealing off), then 2·``n_samples``
     sampling sweeps, so the scored second half sits past the slow exit from
     partial assignments. Prints each chain's ARI every ``min(200,
-    n_samples)`` sweeps, its mean ARI in four windows of the sampling sweeps
+    n_warmup)`` sweeps, its mean ARI in four windows of the sampling sweeps
     and its final state's misplaced neurons. Returns (the
     report entries but ``wall_s``, the windows per chain)."""
     ns4 = 2 * n_samples
+    n_warmup = n_samples if n_warmup is None else n_warmup
     progress = _progress(label)
 
     def callback(phase, it, states):
@@ -322,8 +325,8 @@ def sample4(pop, data, A_true, seed: int, n_samples: int, n_chains: int, label: 
         print(f"  {label}: ARI per chain now {aris}", flush=True)
 
     samples, diag, states = gibbs_sample_chains(
-        pop, data, seed, n_chains=n_chains, n_samples=ns4, n_warmup=n_samples,
-        chunk_size=min(200, n_samples), init_params=smart_initialize(pop, data), anneal_frac=0.5,
+        pop, data, seed, n_chains=n_chains, n_samples=ns4, n_warmup=n_warmup,
+        chunk_size=min(200, n_warmup), init_params=smart_initialize(pop, data), anneal_frac=anneal_frac,
         callback=callback,
     )
     half = ns4 // 2
@@ -352,7 +355,7 @@ def sample4(pop, data, A_true, seed: int, n_samples: int, n_chains: int, label: 
     return {
         "n_samples": ns4,
         "n_chains": n_chains,
-        "anneal_frac": 0.5,
+        "anneal_frac": anneal_frac,
         "accept_rate": round(float(np.mean(diag["accept_rate_glm"])), 3),
         "planted_partition_ari_per_chain": per_chain_ari,
         "planted_partition_ari_min_chain": min(per_chain_ari),

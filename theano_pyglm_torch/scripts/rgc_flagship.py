@@ -11,6 +11,14 @@ unless ``--device cpu`` is given.
 
   python3 -m theano_pyglm_torch.scripts.rgc_flagship [--n_iters 10000] [--n_chains 4] [-r results/rgc_torch]
 
+On k GPUs, one process each, the chains split over the ranks (the JAX
+script's chain mesh; ``--n_chains`` a multiple of k):
+
+  torchrun --nproc_per_node k -m theano_pyglm_torch.scripts.rgc_flagship
+
+Rank 0 simulates and fits; the sampler starts every rank, on
+cuda:<LOCAL_RANK>, from rank 0's data and fit; rank 0 prints and writes.
+
 :func:`run` is the sampling half (chains, diagnostics, AUC) for callers that
 already hold a population, data and a MAP fit.
 """
@@ -26,9 +34,11 @@ import numpy as np
 import torch
 
 from theano_pyglm_torch import Population, make_model
-from theano_pyglm_torch.inference.map import map_fit
+from theano_pyglm_torch.inference.map import map_fit, split_params
 from theano_pyglm_torch.inference.smart_init import smart_initialize
+from theano_pyglm_torch.parallel import distributed
 from theano_pyglm_torch.parallel.chains import gibbs_sample_chains
+from theano_pyglm_torch.parallel.mesh import chain_mesh
 from theano_pyglm_torch.utils.diagnostics import summarize_chains
 
 __all__ = ["link_prediction_auc", "summarize", "run", "main"]
@@ -67,9 +77,10 @@ def summarize(samples: dict, A_true, wall_s: float, iters: int, n_chains: int) -
 
 def run(pop, data, true, init, seed: int = 0, n_chains: int = 4, n_iters: int = 10_000,
         n_warmup: int = 1_000, thin: int = 10, n_leapfrog: int = 10, init_jitter: float = 0.05,
-        chunk_size: int = 250, callback=None):
+        chunk_size: int = 250, callback=None, mesh=None):
     """Sample ``n_chains`` chains from the MAP fit ``init`` and summarize
-    them against the generating parameters ``true``.
+    them against the generating parameters ``true``; with a 'chains'
+    ``mesh``, this rank's block of them (every rank returns every chain).
 
     Returns (samples, diagnostics, states, summary); ``summary`` is the
     flagship's JSON (see :func:`summarize`)."""
@@ -77,7 +88,7 @@ def run(pop, data, true, init, seed: int = 0, n_chains: int = 4, n_iters: int = 
     samples, diag, states = gibbs_sample_chains(
         pop, data, seed, n_chains=n_chains, n_samples=n_iters // thin, n_warmup=n_warmup,
         thin=thin, n_leapfrog=n_leapfrog, chunk_size=chunk_size, init_params=init,
-        init_jitter=init_jitter, callback=callback,
+        init_jitter=init_jitter, callback=callback, mesh=mesh,
     )
     if pop.device.type == "cuda":
         torch.cuda.synchronize(pop.device)
@@ -100,40 +111,58 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
+    # several ranks (torchrun): the chains split over them, each on its own GPU
+    mesh = chain_mesh() if distributed.initialize(device=args.device) else None
+    device = args.device if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
     # RGC-realistic firing rates (~20 Hz baseline; Pillow et al. 2008 cells)
     spec = make_model("distance_weighted_model", args.N, bias={"mu": 3.0, "sigma": 0.4})
-    pop = Population(spec, device=args.device)
+    pop = Population(spec, device=device)
     g_host = torch.Generator().manual_seed(args.seed)
-    g_dev = torch.Generator(device=pop.device).manual_seed(args.seed)
     true = pop.sample(g_host)
     T = int(round(args.T_sec / pop.dt))
     stim = torch.randn((T, 1), generator=g_host).numpy()
-    t0 = time.time()
-    S, rates = pop.simulate(g_dev, true, T, stim=stim)
-    print(f"simulated {float(S.sum()):.0f} spikes ({float(rates.mean()):.1f} Hz) in {time.time() - t0:.1f}s",
-          flush=True)
-    data = pop.prepare_data(S, stim=stim)
+    if lead:
+        t0 = time.time()
+        S, rates = pop.simulate(torch.Generator(device=pop.device).manual_seed(args.seed), true, T, stim=stim)
+        say(f"simulated {float(S.sum()):.0f} spikes ({float(rates.mean()):.1f} Hz) in {time.time() - t0:.1f}s")
+        data = pop.prepare_data(S, stim=stim)
 
-    # MAP-start the chains (jittered): prior-draw inits leave long warmup
-    # transients that can poison a chain's adaptation window
-    t0 = time.time()
-    init, map_logp, _ = map_fit(pop, data, smart_initialize(pop, data, g_host))
-    print(f"MAP init: log-joint {float(map_logp):.1f} in {time.time() - t0:.1f}s", flush=True)
+        # MAP-start the chains (jittered): prior-draw inits leave long warmup
+        # transients that can poison a chain's adaptation window
+        t0 = time.time()
+        init, map_logp, _ = map_fit(pop, data, smart_initialize(pop, data, g_host))
+        say(f"MAP init: log-joint {float(map_logp):.1f} in {time.time() - t0:.1f}s")
+    else:
+        # rank 0 alone simulates and fits: the sampler broadcasts its data
+        # and fit into these placeholders of the same shapes and layout
+        data = pop.prepare_data(torch.zeros((T, pop.N)), stim=stim)
+        opt, frozen = split_params(true)
+        init = {**frozen, **opt}
 
     t0 = time.time()
     samples, _, _, summary = run(
         pop, data, true, init, seed=args.seed, n_chains=args.n_chains, n_iters=args.n_iters,
-        n_warmup=args.n_warmup, thin=args.thin,
-        callback=lambda ph, it, st: print(f"  {ph} {it} @ {time.time() - t0:.0f}s", flush=True),
+        n_warmup=args.n_warmup, thin=args.thin, mesh=mesh,
+        callback=lambda ph, it, st: say(f"  {ph} {it} @ {time.time() - t0:.0f}s"),
     )
-    print(json.dumps(summary, indent=2))
-    os.makedirs(args.resultsDir, exist_ok=True)
-    arrays = {f"samples/{k}": v for k, v in samples.items()}
-    arrays.update({f"true_params/{k}": v.detach().cpu().numpy() for k, v in true.items()})
-    np.savez_compressed(os.path.join(args.resultsDir, "flagship_samples.npz"), **arrays)
-    with open(os.path.join(args.resultsDir, "flagship_summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-        f.write("\n")
+    if mesh is not None:
+        summary["ranks"] = mesh.size
+    if lead:
+        print(json.dumps(summary, indent=2))
+        os.makedirs(args.resultsDir, exist_ok=True)
+        arrays = {f"samples/{k}": v for k, v in samples.items()}
+        arrays.update({f"true_params/{k}": v.detach().cpu().numpy() for k, v in true.items()})
+        np.savez_compressed(os.path.join(args.resultsDir, "flagship_samples.npz"), **arrays)
+        with open(os.path.join(args.resultsDir, "flagship_summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+            f.write("\n")
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -63,7 +63,7 @@ def save_checkpoint(directory: str, step: int, state, generators, max_to_keep: i
     of dicts, lists, :class:`HMCState` records and tensors (the MCMC state
     of one chain, or the chains' batched state, every tensor with a leading
     chain axis); ``generators`` the chains' generators, whose states are
-    saved. The file is written under a
+    saved, or those states themselves. The file is written under a
     temporary name and renamed, so a run cut off while saving leaves the
     previous checkpoints intact; then all but the newest ``max_to_keep``
     are deleted."""
@@ -71,7 +71,7 @@ def save_checkpoint(directory: str, step: int, state, generators, max_to_keep: i
     payload = {
         "step": int(step),
         "state": _encode(state),
-        "generators": [g.get_state() for g in generators],
+        "generators": [g.get_state() if isinstance(g, torch.Generator) else g for g in generators],
     }
     tmp = _path(directory, step) + ".tmp"
     torch.save(payload, tmp)
