@@ -96,10 +96,12 @@ Phases, each of which raises on a mismatch or a non-finite value:
 8. Long recordings at N=100, T=600,000 (10 min at 1 ms), B=5: the model,
    planted network and stimulus of
    theano_pyglm_torch/scripts/stretch_streaming.py. 8a: K1/K2 against the
-   plain version as in phase 2 at the path's three shapes, all in two
-   column groups of U: (600,000, 500, 100) resident, (65,536, 500, 100)
-   one block, (10,176, 500, 100) the ragged last block, each with the bound
-   of X_f read once and read once per group. 8b: simulate, mean rate in
+   plain version as in phase 2 at the path's three shapes, all through
+   their wide-U instance (csrc/fused_poisson_ll_wide.cu: U too wide to stay
+   in shared memory), each call counted in kernels.WIDE_LAUNCHES too:
+   (600,000, 500, 100) resident, (65,536, 500, 100) one block, (10,176,
+   500, 100) the ragged last block, each with the bound of X_f read once
+   and, for K2, read twice as that instance reads it. 8b: simulate, mean rate in
    1-20 Hz. 8c: MAP on the streamed design (time_chunk=65,536, no X_imp):
    K2 launches 10 x the value+grad evaluations and K1 10 x the value-only
    ones, the MAP log-joint at least the truth's, and the device memory one
@@ -179,9 +181,11 @@ likelihood. With a bf16 design (phase 10) every sampler evaluation is a
 K4-chains launch, at any C.
 
 The line before the last two is one JSON object describing the kernels
-K1, K2, K3-fwd and K3-vg (times and errors from phase 2) and the four K4
-(from 10a), with launches summed over the paths of phases 3, 5, 6, 7, 8, 9,
-10 and 11, each of which must have launched at least once; the next the
+K1, K2, K3-fwd and K3-vg (times and errors from phase 2), the four K4
+(from 10a) and K1's and K2's wide-U instance (8a at T=600,000), with
+launches summed over the paths of phases 3, 5, 6, 7, 8, 9, 10 and 11
+(K1's and K2's without their wide-U instance's, which phase 8's paths
+make), each of which must have launched at least once; the next the
 card's name and power limit; the last
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
@@ -214,7 +218,8 @@ from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  #
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
 from theano_pyglm_torch.ops.cuda_loader import (  # noqa: E402
-    SOURCE, SOURCE_BF16, SOURCE_CHAINS, build_all, load_fused_ll, load_fused_ll_bf16, load_fused_ll_chains)
+    SOURCE, SOURCE_BF16, SOURCE_CHAINS, SOURCE_WIDE, build_all, load_fused_ll, load_fused_ll_bf16,
+    load_fused_ll_chains, load_fused_ll_wide)
 from theano_pyglm_torch.parallel import gibbs_sample_chains  # noqa: E402
 from theano_pyglm_torch.scripts import acceptance, rgc_flagship  # noqa: E402
 from theano_pyglm_torch.utils.diagnostics import adjusted_rand_index  # noqa: E402
@@ -320,6 +325,7 @@ assert set(KERNELS) == set(kernels.LAUNCHES)
 def zero_launches() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
     kernels.LAUNCHES.update({k: 0 for k in KERNELS})
+    kernels.WIDE_LAUNCHES.update({k: 0 for k in kernels.WIDE_LAUNCHES})
 
 
 def launches_of(**counts) -> dict:
@@ -340,6 +346,7 @@ def setup() -> str:
     t0 = time.perf_counter()
     built = build_all()  # one nvcc per source, started together
     load_fused_ll()
+    load_fused_ll_wide()
     load_fused_ll_bf16()
     load_fused_ll_chains()
     log(f"built {', '.join(os.path.relpath(p, REPO) for p, _ in built.values())} in "
@@ -388,7 +395,9 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
     sums over up to 60M terms taken in another order. Then bit-for-bit
     repeats, one launch per call, and the median times, with the bound of
     the single read and, where U is cut into G column groups, of X_f read G
-    times."""
+    times. Where the plan takes K1/K2's wide-U instance, every call is
+    checked to have launched it, and K2's bound is also given with X_f read
+    twice, as that instance reads it."""
     max_err = {"fwd": 0.0, "vg": 0.0}
     for clip_entries in (0, 500):
         ops = _kernel_operands(dev, T, N, clip_entries, on_device)
@@ -414,13 +423,23 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
             max_err["vg"] = max(abs(float(ll) - ref), float((du - du_r).abs().max()), err_dir)
 
     ops = _kernel_operands(dev, T, N, on_device=on_device)
-    launches = dict(kernels.LAUNCHES)
+    launches, wide = dict(kernels.LAUNCHES), dict(kernels.WIDE_LAUNCHES)
     a, b = kernels.fused_ll_value_and_grad(*ops, DT), kernels.fused_ll_value_and_grad(*ops, DT)
     require(all(torch.equal(x, y) for x, y in zip(a, b)), "K2 not bit-for-bit repeatable")
     require(torch.equal(kernels.fused_ll_value(*ops, DT), kernels.fused_ll_value(*ops, DT)),
             "K1 not bit-for-bit repeatable")
     require(kernels.LAUNCHES == {**launches, "fwd": launches["fwd"] + 2, "vg": launches["vg"] + 2},
             f"not one launch per call: {launches} -> {kernels.LAUNCHES}")
+    plans = {k: kernels.launch_plan(T, 5 * N, N, kernels._sm_count(dev.index), k == "vg") for k in ("fwd", "vg")}
+    for k, plan in plans.items():
+        want = wide[k] + (2 if plan.k_slab else 0)
+        require(kernels.WIDE_LAUNCHES[k] == want,
+                f"{k}: {kernels.WIDE_LAUNCHES[k] - wide[k]} of 2 calls through the wide-U instance, plan {plan}")
+        if plan.k_slab:
+            log(f"  {k}: the wide-U instance (csrc/fused_poisson_ll_wide.cu, fused_ll_{k}_wide) took every call: "
+                f"tiles of {plan.tile_t} bins ({plan.m_warps} x {_warps_along_n(plan)} warps, {plan.m_tiles} m-tiles "
+                f"a warp), k-slabs of {plan.k_slab} in {plan.stages} stages, grid {plan.grid_x}"
+                + (f", dU in {plan.du_parts} parts over chunks of {plan.du_chunk} bins" if k == "vg" else ""))
     log("kernels repeat bit for bit, one launch per call")
 
     fns = {
@@ -437,7 +456,7 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
         enqueue = median_ms(kern, device_only=False)
         bound_ms, bound_by = bound(k, ops)
         share = bound_ms / cold
-        plan = kernels.launch_plan(T, 5 * N, N, kernels._sm_count(dev.index), k == "vg")
+        plan = plans[k]
         log(f"{label} T={T} NB={5 * N} N={N}, median of 50 calls, {k}: kernel {warm:.4f} ms warm, "
             f"{cold:.4f} ms cold; plain torch {plain_warm:.4f} ms warm, {plain_cold:.4f} ms cold; "
             f"bound {bound_ms:.4f} ms ({bound_by}); roofline share of the cold time {100 * share:.1f} %; "
@@ -447,6 +466,10 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
             log(f"  {k}: {plan.groups} column groups of {plan.group_cols}, tile {plan.tile_t}, grid "
                 f"{plan.grid_x} x {plan.grid_y * plan.groups}; with X_f read {plan.groups} times the bound is "
                 f"{g_ms:.4f} ms ({g_by}), share {100 * g_ms / cold:.1f} %")
+        if plan.k_slab and k == "vg":
+            g_ms, g_by = bound(k, ops, x_reads=2)
+            log(f"  {k}: with X_f read twice (the forward, then dU) the bound is {g_ms:.4f} ms ({g_by}), "
+                f"share {100 * g_ms / cold:.1f} %")
         if warm < bound_ms:
             log(f"  {k}: the warm time beats the HBM bound because X_f ({ops[0].numel() * 4 / 1e6:.1f} MB) "
                 f"stays in the 50 MB L2; no share is taken from it")
@@ -454,6 +477,11 @@ def check_kernels(dev, T, N, label, card, on_device=False) -> dict:
                     "plain_cold_ms": plain_cold, "bound_ms": bound_ms, "bound_by": bound_by,
                     "share": share, "library_ms": None}
     return stats
+
+
+def _warps_along_n(plan) -> int:
+    """The warps of the wide-U instance's tile that share its n-tiles."""
+    return kernels.WARPS // plan.m_warps
 
 
 def _chain_operands(dev, T, N, C, clip_entries=0):
@@ -969,13 +997,22 @@ class XVPopulation(CountingPopulation):
         return super().log_likelihood(params, data)
 
 
+# K1's and K2's launches through their wide-U instance on the counted paths
+WIDE_ON_PATHS = dict.fromkeys(kernels.WIDE_LAUNCHES, 0)
+
+
 def _counted(pop):
-    """(launches, likelihood evaluations) so far, to difference later."""
-    return dict(kernels.LAUNCHES), dict(pop.ll_evals)
+    """(launches, likelihood evaluations, wide-U launches) so far, to
+    difference later."""
+    return dict(kernels.LAUNCHES), dict(pop.ll_evals), dict(kernels.WIDE_LAUNCHES)
 
 
 def _since(pop, before) -> tuple:
-    launches0, ll0 = before
+    """(launches, likelihood evaluations) since ``before``; the wide-U
+    instance's launches since then are added to WIDE_ON_PATHS."""
+    launches0, ll0, wide0 = before
+    for k in wide0:
+        WIDE_ON_PATHS[k] += kernels.WIDE_LAUNCHES[k] - wide0[k]
     return ({k: kernels.LAUNCHES[k] - launches0[k] for k in launches0},
             {k: pop.ll_evals[k] - ll0[k] for k in ll0})
 
@@ -1584,9 +1621,11 @@ def _grads(pop, params, data) -> tuple:
     return float(val.detach()), {k: v.grad.detach().cpu().double() for k, v in opt.items()}
 
 
-def long_recording_phase(dev, card) -> dict:
+def long_recording_phase(dev, card) -> tuple:
     """Phase 8. Returns the launches of its paths (streamed MAP, resident
-    log-likelihood, the sampler), summed."""
+    log-likelihood, the sampler, the streamed gradient of 8e), summed; the
+    wide-U instance's launches on those paths; and its 8a statistics at the
+    resident shape."""
     from theano_pyglm_torch.scripts import stretch_streaming as stretch
 
     t_phase = time.perf_counter()
@@ -1594,8 +1633,11 @@ def long_recording_phase(dev, card) -> dict:
     n_blocks = -(-T_LONG // C)
     # (a) the kernels at the path's three shapes: resident, one block, the ragged last block
     for T_, label in ((T_LONG, "8a resident"), (C, "8a block"), (T_LONG - (n_blocks - 1) * C, "8a last block")):
-        check_kernels(dev, T_, N_LONG, label, card, on_device=True)
+        got = check_kernels(dev, T_, N_LONG, label, card, on_device=True)
+        if T_ == T_LONG:
+            wide_stats = got
         torch.cuda.empty_cache()
+    wide0 = dict(WIDE_ON_PATHS)
 
     # (b) the recording
     spec, pop_res, true, stim = stretch.planted(dev, N_LONG, T_LONG, pop_cls=CountingPopulation)
@@ -1714,8 +1756,11 @@ def long_recording_phase(dev, card) -> dict:
         f"{cpu_val:.3f}, rel {err_v:.3e}; gradient rel-L2 " + ", ".join(f"{k} {e:.2e}" for k, e in err_g.items()))
     require(err_v <= 1e-5, f"8e: log-joint rel err {err_v}")
     require(max(err_g.values()) <= 1e-4, f"8e: gradient rel-L2 errors {err_g}")
-    log(f"phase 8: {time.perf_counter() - t_phase:.2f} s; launches on its paths {launches}")
-    return launches
+    wide = {k: WIDE_ON_PATHS[k] - wide0[k] for k in wide0}
+    log(f"phase 8: {time.perf_counter() - t_phase:.2f} s; launches on its paths {launches}, of K1/K2 through "
+        f"the wide-U instance {wide}")
+    require(wide["fwd"] > 0 and wide["vg"] > 0, f"phase 8: the wide-U instance never launched: {wide}")
+    return launches, wide, wide_stats
 
 
 # --- phase 9 ----------------------------------------------------------------
@@ -2319,7 +2364,8 @@ def main() -> None:
     launches = _add(launches, variants_phase(dev, card, sl))
 
     torch.cuda.empty_cache()
-    launches = _add(launches, long_recording_phase(dev, card))
+    long_launches, wide_launches, wide_stats = long_recording_phase(dev, card)
+    launches = _add(launches, long_launches)
     torch.cuda.empty_cache()
     launches = _add(launches, harness_phase(dev, card))
 
@@ -2352,13 +2398,18 @@ def main() -> None:
              "vg_chains_bf16": "K4-vg-chains fused_ll_vg_chains_bf16"}
     sources = {k: SOURCE_CHAINS if "chains" in k else SOURCE_BF16 if k in BF16_KERNELS else SOURCE
                for k in KERNELS}
-    # library_ms is null: no single PyTorch call computes the fused value or value+grad
-    print(json.dumps({"kernels": [
-        {"name": names[k], "route": "cuda",
-         "source": os.path.relpath(sources[k], REPO),
-         "replaces": replaces[k.removesuffix("_bf16")], "launches": launches[k], **kstats[k]}
-        for k in KERNELS
-    ]}), flush=True)
+    # library_ms is null: no single PyTorch call computes the fused value or value+grad.
+    # K1 and K2 count their wide-U instance's launches too; the line gives
+    # that instance its own entries (its launches and its 8a resident
+    # statistics) and K1's and K2's the rest.
+    entries = [{"name": names[k], "route": "cuda", "source": os.path.relpath(sources[k], REPO),
+                "replaces": replaces[k.removesuffix("_bf16")],
+                "launches": launches[k] - wide_launches.get(k, 0), **kstats[k]} for k in KERNELS]
+    entries += [{"name": f"{names[k].split()[0]}-wide fused_ll_{k}_wide", "route": "cuda",
+                 "source": os.path.relpath(SOURCE_WIDE, REPO), "replaces": replaces[k],
+                 "launches": wide_launches[k], **wide_stats[k]} for k in ("fwd", "vg")]
+    require(all(e["launches"] > 0 for e in entries), f"a kernel was never launched on the main paths: {entries}")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

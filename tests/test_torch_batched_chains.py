@@ -245,8 +245,8 @@ def test_chain_groups():
         if len(got) > 1 and C <= kernels.MAX_CHAINS:
             with pytest.raises(ValueError, match=rf"K3 at NB={NB}, N={N}, C={C}"):
                 kernels.launch_plan(1000, NB, N, H100_SMS, True, chains=C)
-    # K1/K2 plan every shape whose chains go one by one, column groups and all
-    assert kernels.launch_plan(1000, 445, 89, H100_SMS, True, chains=1).groups == 2
+    # K1/K2 plan every shape whose chains go one by one, a U too wide for shared memory and all
+    assert kernels.launch_plan(1000, 445, 89, H100_SMS, True, chains=1).k_slab > 0
     with pytest.raises(ValueError):
         kernels.chain_groups(135, 27, 0)
 
@@ -403,7 +403,10 @@ def test_chain_library_holds_the_four_chain_kernels():
     assert ep[cuda_loader.SOURCE] == ("fwd", "vg") and ep[cuda_loader.SOURCE_BF16] == ("fwd_bf16", "vg_bf16")
     for name in ("fwd_chains", "fwd_chains_bf16"):
         assert [src.name for src, names in ep.items() if name in names] == ["fused_ll_chains.cu"]
-    assert sorted(n for names in ep.values() for n in names) == sorted(kernels.LAUNCHES)
+    # K1/K2's wide-U instance counts under K1's and K2's keys
+    assert ep[cuda_loader.SOURCE_WIDE] == ("fwd_wide", "vg_wide")
+    assert sorted(n for src, names in ep.items() if src != cuda_loader.SOURCE_WIDE for n in names) == \
+        sorted(kernels.LAUNCHES)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

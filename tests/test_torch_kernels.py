@@ -263,9 +263,85 @@ def test_launch_plan_raises_beyond_the_limit():
     nb1 = _largest_nb(27, one_group=True)
     assert kernels.launch_plan(100, nb1, 27, H100_SMS, True).groups == 1
     plan = kernels.launch_plan(100, nb1 + 1, 27, H100_SMS, True)
-    assert plan.groups > 1 and plan.smem_bytes <= kernels.SMEM_LIMIT
+    # past one group U is not kept resident: the wide-U instance, one group
+    assert plan.k_slab > 0 and plan.groups == 1 and plan.smem_bytes <= kernels.SMEM_LIMIT
     with pytest.raises(ValueError):
         kernels.launch_plan(0, 135, 27, H100_SMS, True)
+
+
+#: K1/K2 plans of the parent design at shapes where all of U stays resident
+#: (tile_t, n_tiles, grid_x, grid_y, smem_bytes, groups, group_cols), the
+#: same for K1 and K2
+RESIDENT_PLANS = {
+    (60_000, 135, 27): (116, 518, 132, 1, 218432, 1, 27),
+    (60_000, 5, 1): (116, 518, 132, 1, 15552, 1, 1),
+    (240_000, 50, 10): (124, 1936, 132, 1, 84736, 1, 10),
+    (30_000, 50, 10): (116, 259, 132, 1, 83456, 1, 10),
+    (60_000, 80, 16): (116, 518, 132, 1, 127616, 1, 16),
+    (12_000, 135, 27): (92, 131, 131, 1, 173504, 1, 27),
+    (48_000, 135, 27): (124, 388, 132, 1, 221888, 1, 27),
+    (37, 135, 27): (4, 10, 10, 1, 49088, 1, 27),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(RESIDENT_PLANS))
+def test_launch_plan_keeps_the_resident_plan_where_u_fits(shape):
+    """Where U fits in one group the plan is the parent's, field for field,
+    and names no wide-U instance."""
+    for grad in (False, True):
+        plan = kernels.launch_plan(*shape, H100_SMS, grad)
+        assert tuple(plan)[:7] == RESIDENT_PLANS[shape]
+        assert (plan.k_slab, plan.stages, plan.m_warps, plan.du_parts, plan.du_chunk) == (0, 0, 0, 0, 0)
+    # N=88 at NB=5N, the widest that stays resident, and its K2's dU slices
+    assert kernels.launch_plan(600_000, 440, 88, H100_SMS, True)[:7] == (8, 75000, 44, 3, 230784, 1, 88)
+
+
+@pytest.mark.parametrize("T", [600_000, 65_536, 10_176, 37])
+@pytest.mark.parametrize("N", [89, 100, 112, 128, 160])
+def test_wide_launch_plan(N, T):
+    """N ≥ 89 at NB = 5N: the wide-U instance. Its tiles cover T once, its
+    shared memory fits, its grid is no larger than the SMs (a cooperative
+    launch), every warp gets forward work in a full tile (its m-tiles and 1
+    to WIDE_FWD_RUN n-tiles, each m-tile's n-tiles covered once), and K2's
+    dU runs cover every 16 × 8 tile of dU once, eight to a part, with a
+    block for every part."""
+    NB = 5 * N
+    assert kernels._smem_bytes(NB, N, 4) > kernels.SMEM_LIMIT  # U would not stay resident
+    nt, mt = -(-N // 8), -(-NB // 16)
+    for grad in (False, True):
+        plan = kernels.launch_plan(T, NB, N, H100_SMS, grad)
+        assert plan.k_slab in (8, 16, 32) and 2 <= plan.stages <= 4
+        assert (plan.m_warps, plan.m_tiles) in kernels.WIDE_LAYOUTS[grad]
+        assert (plan.groups, plan.group_cols, plan.grid_y) == (1, N, 1)
+        assert plan.tile_t == 16 * plan.m_tiles * plan.m_warps and plan.n_tiles == -(-T // plan.tile_t)
+        spans = sorted(span for tiles in _block_tiles(plan, T) for span in tiles)
+        assert spans[0][0] == 0 and spans[-1][1] == T
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        counts = [len(tiles) for tiles in _block_tiles(plan, T)]
+        assert max(counts) - min(counts) <= 1 and plan.grid_x <= H100_SMS
+        assert plan.smem_bytes <= kernels.SMEM_LIMIT
+        assert plan.smem_bytes == kernels._smem_bytes_wide(NB, N, plan.tile_t, plan.k_slab, plan.stages,
+                                                           plan.du_chunk)
+        runs = kernels.wide_fwd_runs(N, plan.m_warps, plan.m_tiles)
+        assert len(runs) == kernels.WARPS
+        assert all(1 <= n <= kernels.WIDE_FWD_RUN[plan.m_tiles] for _, _, n in runs)
+        for m in range(0, plan.tile_t // 16, plan.m_tiles):  # each m-tile's n-tiles covered once
+            cols = sorted(j for mm, lo, n in runs if mm == m for j in range(lo, lo + n))
+            assert cols == list(range(nt))
+        if T >= 16 * H100_SMS:  # a long recording: tiles of 64 bins or more, k-slabs 32 columns deep
+            assert plan.tile_t >= 64 and plan.k_slab == 32
+        if not grad:
+            assert plan.du_parts == plan.du_chunk == 0 and plan.grid_x == min(H100_SMS, plan.n_tiles)
+            continue
+        assert plan.du_chunk in kernels.WIDE_CHUNKS and plan.grid_x == H100_SMS >= plan.du_parts
+        tiles = []
+        for p in range(plan.du_parts):
+            got = [kernels.wide_du_run(NB, N, p, w) for w in range(kernels.WARPS)]
+            assert got[0] is not None
+            assert all(r is None or 1 <= r[2] <= kernels.WIDE_DU_RUN for r in got)
+            tiles += [(m, j) for r in got if r is not None for m in (r[0], r[0] + 1) if m < mt
+                      for j in range(r[1], r[1] + r[2])]
+        assert sorted(tiles) == [(m, j) for m in range(mt) for j in range(nt)]
 
 
 def test_build_flags_target_hopper_and_carry_the_clip():
@@ -301,11 +377,16 @@ def _check_against_reference(x, u, ir, s):
         (1001, 5, 1, 0),  # N=1: one 8-neuron n-tile, mostly padding
         (2000, 25, 5, 20),  # N=5, not a multiple of the 7-neuron dU micro-tile
         (1500, 77, 9, 0),  # odd NB
-        (300, "largest", 27, 0),  # the largest NB·N the wrapper takes: 4 column groups, dU over grid_y
+        (300, "largest", 27, 0),  # the largest NB of groups of 8: the wide-U instance, NB not a multiple of 4
         (300, "one_group", 27, 0),  # the largest NB·N in one group: dU split over grid_y
-        (2001, 460, 92, 20),  # N ≥ 89 at NB = 5N: two column groups of 48 and 44
-        (10_176, 500, 100, 50),  # the long recording's last block: groups of 56 and 44
-        (1003, 640, 128, 0),  # four groups of 32
+        (2001, 460, 92, 20),  # N ≥ 89 at NB = 5N: the wide-U instance
+        (10_176, 500, 100, 50),  # the long recording's last block
+        (65_536, 500, 100, 0),  # the long recording's block
+        (37, 500, 100, 0),  # less than one of its tiles: 16-bin tiles
+        (1003, 640, 128, 0),
+        (2001, 800, 160, 20),  # two warps share a tile's n-tiles, dU in runs of 7 and 6 n-tiles
+        (1000, 445, 89, 10),  # NB not a multiple of 4: X_f moved 4 bytes at a time
+        (64, 200, 1040, 0),  # past the wide-U instance: the resident instance's column groups
     ],
 )
 def test_kernels_match_reference_on_card(cuda, T, NB, N, clip_bins):
@@ -336,17 +417,20 @@ def test_kernels_are_deterministic_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_column_groups_repeat_bit_for_bit_on_card(cuda):
-    """N=100 in two column groups: one launch per call and the same bits
-    every call (the groups' values are added in group order)."""
-    ops = _torch(*_inputs(10_176, 500, 100, i_shift=-3.0), device=cuda)
-    assert kernels.launch_plan(10_176, 500, 100, kernels._sm_count(cuda.index or 0), True).groups > 1
-    before = dict(kernels.LAUNCHES)
+@pytest.mark.parametrize("T", [10_176, 65_536])
+def test_column_groups_repeat_bit_for_bit_on_card(cuda, T):
+    """N=100 at the long recording's block shapes, past the resident
+    instance's single group: the wide-U instance, one launch per call and
+    the same bits every call (fixed-order sums, no float atomics)."""
+    ops = _torch(*_inputs(T, 500, 100, i_shift=-3.0), device=cuda)
+    assert kernels.launch_plan(T, 500, 100, kernels._sm_count(cuda.index or 0), True).k_slab > 0
+    before, wide = dict(kernels.LAUNCHES), dict(kernels.WIDE_LAUNCHES)
     a, b = fused_ll_value_and_grad(*ops, DT), fused_ll_value_and_grad(*ops, DT)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(fused_ll_value(*ops, DT), fused_ll_value(*ops, DT))
     assert kernels.LAUNCHES == {**before, "fwd": before["fwd"] + 2, "vg": before["vg"] + 2}
+    assert kernels.WIDE_LAUNCHES == {"fwd": wide["fwd"] + 2, "vg": wide["vg"] + 2}
 
 
 @pytest.mark.cuda

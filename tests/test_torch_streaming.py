@@ -191,19 +191,28 @@ def test_launch_plan_column_groups(grad):
         plan = kernels.launch_plan(*shape, H100_SMS, grad)
         assert (plan.groups, plan.group_cols) == (1, shape[2]), shape
     for T, NB, N in STRETCH_SHAPES:
+        # U does not stay resident in one group: the wide-U instance, all N
+        # columns in every block (tests/test_torch_kernels.py::test_wide_launch_plan)
+        assert kernels._smem_bytes(NB, N, 4) > kernels.SMEM_LIMIT
         plan = kernels.launch_plan(T, NB, N, H100_SMS, grad)
-        assert plan.groups > 1 and plan.group_cols % 8 == 0
-        assert plan.groups == -(-N // plan.group_cols)
-        # every group, the narrower last one too, within the shared memory
-        for W in {plan.group_cols, N - (plan.groups - 1) * plan.group_cols}:
-            assert kernels._smem_bytes(NB, W, plan.tile_t) <= kernels.SMEM_LIMIT
-        assert plan.smem_bytes == kernels._smem_bytes(NB, plan.group_cols, plan.tile_t)
-        assert plan.grid_x * plan.grid_y * plan.groups <= H100_SMS
-        assert plan.grid_y == (-(-kernels.du_tiles(NB, plan.group_cols) // kernels.THREADS) if grad else 1)
-        # one group fewer would not fit
-        fewer = -(-N // (plan.groups - 1))
-        fewer = N if plan.groups == 2 else -(-fewer // 8) * 8
-        assert kernels._smem_bytes(NB, fewer, 4) > kernels.SMEM_LIMIT
+        assert plan.k_slab > 0 and (plan.groups, plan.group_cols, plan.grid_y) == (1, N, 1)
+        assert plan.smem_bytes == kernels._smem_bytes_wide(NB, N, plan.tile_t, plan.k_slab, plan.stages,
+                                                           plan.du_chunk) <= kernels.SMEM_LIMIT
+        assert plan.grid_x <= H100_SMS
+        assert plan.du_parts == (kernels.wide_du_runs(NB, N)[2] if grad else 0)
+    # past what the wide instance takes (N ≳ 900), the resident instance's column groups
+    T, NB, N = 64, 200, 1040
+    plan = kernels.launch_plan(T, NB, N, H100_SMS, grad)
+    assert plan.k_slab == 0 and plan.groups == -(-N // plan.group_cols) > 1 and plan.group_cols % 8 == 0
+    for W in {plan.group_cols, N - (plan.groups - 1) * plan.group_cols}:
+        assert kernels._smem_bytes(NB, W, plan.tile_t) <= kernels.SMEM_LIMIT
+    assert plan.smem_bytes == kernels._smem_bytes(NB, plan.group_cols, plan.tile_t)
+    assert plan.grid_x * plan.grid_y * plan.groups <= H100_SMS
+    assert plan.grid_y == (-(-kernels.du_tiles(NB, plan.group_cols) // kernels.THREADS) if grad else 1)
+    # one group fewer would not fit
+    fewer = -(-N // (plan.groups - 1))
+    fewer = N if plan.groups == 2 else -(-fewer // 8) * 8
+    assert kernels._smem_bytes(NB, fewer, 4) > kernels.SMEM_LIMIT
 
 
 def test_column_groups_of_the_plain_version_concatenate_to_the_whole():
@@ -211,7 +220,7 @@ def test_column_groups_of_the_plain_version_concatenate_to_the_whole():
     dI_rest by columns, the value summed), is the whole: column n of the
     currents depends on column n of U alone. Float64, 1e-12."""
     T, NB, N = 700, 500, 100
-    W = kernels.launch_plan(T, NB, N, H100_SMS, True).group_cols
+    W = kernels._group_cols(NB, N, lambda W: kernels._smem_bytes(NB, W, 4))  # the resident instance's groups
     r = np.random.RandomState(0)
     x, u = 0.1 * r.randn(T, NB), 0.3 * r.randn(NB, N)
     ir, s = r.randn(T, N) - 3.0, r.poisson(0.05, (T, N)).astype(float)

@@ -71,19 +71,23 @@
 //   block gets the same number of tiles, give or take one (60,000 bins: 518
 //   tiles of 116 over 132 blocks, the longest block 2 % above the mean).
 // - Column groups. A block keeps U in shared memory, and all of U fits
-//   only up to NB·N of about 8,000 words (NB = 5N: N ≤ 88). Column n of I,
-//   dI_rest and dU depends on column n of U alone, so past that the N
-//   columns are cut into the least number G of groups of W columns (W a
-//   multiple of 8, the last group narrower) whose U slice and two 4-bin
-//   stages fit (NB = 5N: G = 2 for 89 ≤ N ≤ 112, N = 100 in groups of 56
-//   and 44). blockIdx.y = group·grid_y + dU slice; a block holds its
-//   group's columns of U, the tile's whole X_f rows, and the group's I_rest
-//   and S columns (rows N apart in memory, so cp.async moves them a word at
-//   a time). G = 1 at every smaller shape, where the launch is the one
-//   before groups. The cost: X_f is read once per group, G·|X_f| bytes
-//   where the L2 does not serve the groups that work on one tile at about
-//   the same time, and the forward product of a 16-bin tile gives a block
-//   two units of work for eight warps (PERF.md §6).
+//   only up to NB·N of about 8,000 words (NB = 5N: N ≤ 88). Past that
+//   ops/kernels.py launch_plan launches the wide-U instance of K1/K2
+//   (fused_poisson_ll_wide.cu: U streamed in k-slabs, all N columns in a
+//   block, K2's dU a second phase), and this kernel runs in column groups
+//   only where that instance does not fit (N beyond about 900). Column n
+//   of I, dI_rest and dU depends on column n of U alone, so the N columns
+//   are cut into the least number G of groups of W columns (W a multiple
+//   of 8, the last group narrower) whose U slice and two 4-bin stages fit.
+//   blockIdx.y = group·grid_y + dU slice; a block holds its group's
+//   columns of U, the tile's whole X_f rows, and the group's I_rest and S
+//   columns (rows N apart in memory, so cp.async moves them a word at a
+//   time). G = 1 at every smaller shape, where the launch is the one before
+//   groups. The cost: X_f is read once per group, the forward product of a
+//   small tile leaves most warps idle, and each dU slice redoes its group's
+//   forward, which is why the wide-U instance exists; the group path's
+//   machine code stays as it is, so that the G = 1 kernel's does
+//   (tools/kernel_sass.py).
 // - One launch, deterministic. Each block writes its partial row (dU and
 //   each group's ll) to scratch; the grid, launched cooperatively so that
 //   all its blocks are resident, meets at a barrier of two integer words;
@@ -97,10 +101,8 @@
 // What limits it (PERF.md §6, tools/kernel_probe.py): per tile, the 3xTF32
 // products at the rate mma.sync gets on Hopper and K2's FMA product take
 // longer than the tile's copies, and the prologue, the first tile's copy and
-// the cross-block sums cost a fixed ~8 us a call. In column groups the
-// forward product dominates: at N=100 a 16-bin tile gives a block 2
-// forward units for 8 warps, and K2's two dU slices each redo them
-// (without the forward, K2 takes 5.0 of its 14.8 ms at T=600,000).
+// the cross-block sums cost a fixed ~8 us a call. (Shapes past one group
+// of U, N=100 at NB=500 among them, run fused_poisson_ll_wide.cu.)
 //
 #include "fused_ll_common.cuh"
 

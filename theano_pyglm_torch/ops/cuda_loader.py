@@ -1,14 +1,15 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
 The sources in ``theano_pyglm_torch/csrc/`` have a plain C interface:
-``fused_poisson_ll.cu`` (K1, K2), ``fused_poisson_ll_bf16.cu`` (K4-fwd,
+``fused_poisson_ll.cu`` (K1, K2), ``fused_poisson_ll_wide.cu`` (K1's and
+K2's instance for a U too wide for shared memory), ``fused_poisson_ll_bf16.cu`` (K4-fwd,
 K4-vg: the bfloat16 design) and ``fused_ll_chains.cu`` (the four
 chain-batched kernels: K3-fwd, K3-vg, K4-fwd-chains, K4-vg-chains), all
 including ``fused_ll_common.cuh``, the helpers they share. At first use :func:`build_all` compiles each with nvcc for
 Hopper (``sm_90a``), one process per source, all started together, into a
 shared library under ``theano_pyglm_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source, the header and the flags so
-a stale build is never loaded; :func:`load_fused_ll`,
+a stale build is never loaded; :func:`load_fused_ll`, :func:`load_fused_ll_wide`,
 :func:`load_fused_ll_bf16` and :func:`load_fused_ll_chains` open them
 with ctypes. The clip constant comes from
 :mod:`theano_pyglm_torch.ops.clipping` as ``-DEXP_CLIP``.
@@ -30,21 +31,24 @@ from theano_pyglm_torch.ops.clipping import EXP_CLIP
 
 __all__ = [
     "SOURCE",
+    "SOURCE_WIDE",
     "SOURCE_BF16",
     "SOURCE_CHAINS",
     "BUILD_DIR",
     "nvcc_flags",
     "build_all",
     "load_fused_ll",
+    "load_fused_ll_wide",
     "load_fused_ll_bf16",
     "load_fused_ll_chains",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fused_poisson_ll.cu"
+SOURCE_WIDE = _PKG / "csrc" / "fused_poisson_ll_wide.cu"
 SOURCE_BF16 = _PKG / "csrc" / "fused_poisson_ll_bf16.cu"
 SOURCE_CHAINS = _PKG / "csrc" / "fused_ll_chains.cu"
-SOURCES = (SOURCE, SOURCE_BF16, SOURCE_CHAINS)
+SOURCES = (SOURCE, SOURCE_WIDE, SOURCE_BF16, SOURCE_CHAINS)
 HEADER = _PKG / "csrc" / "fused_ll_common.cuh"  # included by every source
 BUILD_DIR = _PKG / "_build"
 
@@ -110,6 +114,7 @@ def build_all(sources=None) -> dict:
 
 
 ENTRY_POINTS = {SOURCE: ("fwd", "vg"),
+                SOURCE_WIDE: ("fwd_wide", "vg_wide"),
                 SOURCE_BF16: ("fwd_bf16", "vg_bf16"),
                 SOURCE_CHAINS: ("fwd_chains", "vg_chains", "fwd_chains_bf16", "vg_chains_bf16")}
 
@@ -124,9 +129,13 @@ def _load(source: Path) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (x_f, u, i_rest, s, [d_irest], part, out, barrier,
     #  T, NB, N, W (one chain) or C (chains), tile_t, grid_x, grid_y, smem_bytes, device, dt, log_dt, stream)
+    # the wide instance: (x_f, u, i_rest, s, [d_irest], usp, part, out, barrier,
+    #  T, NB, N, tile_t, k_slab, stages, m_warps, m_tiles, du_parts, du_chunk, grid_x, smem_bytes, device,
+    #  dt, log_dt, stream)
     for name in ENTRY_POINTS[source]:
         fn = getattr(lib, f"fused_ll_{name}")
-        fn.argtypes = [ptr] * (8 if name.startswith("vg") else 7) + [i32] * 9 + [f32, f32, ptr]
+        wide = name.endswith("_wide")
+        fn.argtypes = [ptr] * (7 + name.startswith("vg") + wide) + [i32] * (13 if wide else 9) + [f32, f32, ptr]
         fn.restype = i32
     lib.fused_ll_error_string.argtypes = [i32]
     lib.fused_ll_error_string.restype = ctypes.c_char_p
@@ -136,6 +145,12 @@ def _load(source: Path) -> ctypes.CDLL:
 def load_fused_ll() -> ctypes.CDLL:
     """The K1 and K2 library (float32 X_f)."""
     return _load(SOURCE)
+
+
+def load_fused_ll_wide() -> ctypes.CDLL:
+    """The library of K1's and K2's wide-U instance (``fused_ll_fwd_wide``,
+    ``fused_ll_vg_wide``)."""
+    return _load(SOURCE_WIDE)
 
 
 def load_fused_ll_bf16() -> ctypes.CDLL:

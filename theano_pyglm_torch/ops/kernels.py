@@ -12,7 +12,8 @@ the unit-cotangent residuals
     dU      = X_fᵀ @ dI_rest,   dI_rest = (S − e^I·dt)·1{|I_raw| < EXP_CLIP}
 
 ride the same read of X_f as the value. Two CUDA kernels
-(``csrc/fused_poisson_ll.cu``, built by :mod:`.cuda_loader`) compute them:
+(``csrc/fused_poisson_ll.cu``, and ``csrc/fused_poisson_ll_wide.cu`` where U
+is too wide for it; built by :mod:`.cuda_loader`) compute them:
 
   K1 (:func:`fused_ll_value`)          value only — ``_fwd_kernel``'s port
   K2 (:func:`fused_ll_value_and_grad`) value, dU, dI_rest — ``_vg_kernel``'s
@@ -43,15 +44,21 @@ not float32 (X_f: float32 or bfloat16) raises. :class:`FusedPoissonLL` is the au
 K3's. A call's tile, grid, column groups and shared memory come from
 :func:`launch_plan`, a plain function of the shapes.
 
-Column groups. A block keeps its columns of U in shared memory, which holds
-all of U up to NB·N ≈ 8,000 words (NB = 5N: N ≤ 88). Column n of I, dI_rest
-and dU depends on column n of U alone, so past that the N columns are cut
-into G groups of ``group_cols`` (a multiple of 8) and each block works on one
-group: G is the least count whose group fits at a 4-bin tile (NB = 5N: G = 2
-for 89 ≤ N ≤ 112; N = 100 runs two groups of 56 and 44). G = 1 at every
-smaller shape, where the launch is what it was before groups. A tile's X_f is
-read once per group, so its device-memory reads grow to G·|X_f| where the
-L2 does not serve the groups that share a tile. K3 takes one column group:
+Wide U. A block of ``csrc/fused_poisson_ll.cu`` keeps U in shared memory,
+which holds all of U up to NB·N ≈ 8,000 words (NB = 5N: N ≤ 88). Past that
+K1/K2 launch their wide-U instance (``csrc/fused_poisson_ll_wide.cu``,
+counted under the same keys of :data:`LAUNCHES` and in
+:data:`WIDE_LAUNCHES`): U is split into TF32 parts once a call into a
+device scratch and streamed in k-slabs beside X_f's, a block holds all N
+columns over a tile of 16·``m_tiles``·``m_warps`` bins, and K2's dU is a
+second phase over the dI_rest it has just written, in ``du_parts`` parts
+of dU's rows (:func:`_wide_plan`, fields ``k_slab`` to ``du_chunk``).
+Where even that does not fit (N ≳ 900) the U-resident instance still runs,
+in column groups: column n of I, dI_rest and dU depends on column n of U
+alone, so the N columns are cut into G groups of ``group_cols`` (a
+multiple of 8) and each block works on one group, G the least count whose
+group fits at a 4-bin tile; a tile's X_f is
+then read once per group. K3 takes one column group:
 all the C·N columns of its chains beside a 4-bin tile, for at most
 MAX_CHAINS chains. Past that the chains go in groups of chains, as even as
 the most K3 takes allows (NB = 5N: 8 chains up to N = 33, 4 up to 46, 3 up
@@ -92,6 +99,7 @@ __all__ = [
     "DU_TILE",
     "LAUNCHES",
     "MAX_CHAINS",
+    "WIDE_LAUNCHES",
     "SMEM_LIMIT",
     "THREADS",
     "TILE_MAX",
@@ -118,6 +126,10 @@ __all__ = [
     "fused_poisson_ll_reference",
     "fused_poisson_ll_value_reference",
     "launch_plan",
+    "wide_du_run",
+    "wide_du_runs",
+    "wide_fwd_runs",
+    "wide_split_words",
 ]
 
 THREADS = 256  # threads per block of the CUDA kernels (kThreads in the source)
@@ -135,6 +147,8 @@ K4_MIN_TILE = 32  # K4's column groups keep room for tiles of this many bins whe
 # K4 (a bfloat16 X_f) counts under the float32 kernel's key with "_bf16".
 LAUNCHES = {"fwd": 0, "vg": 0, "fwd_chains": 0, "vg_chains": 0,
             "fwd_bf16": 0, "vg_bf16": 0, "fwd_chains_bf16": 0, "vg_chains_bf16": 0}
+# Of LAUNCHES["fwd"] and ["vg"], those of the wide-U instance.
+WIDE_LAUNCHES = {"fwd": 0, "vg": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +221,13 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block
     groups: int  # G, the column groups of U (1: all N columns in every block; K3, K4-chains: 1)
     group_cols: int  # columns of a group (K4: of its widest): N when G = 1, else a multiple of 8
+    # K1/K2's wide-U instance (fused_poisson_ll_wide.cu); 0 in every other plan
+    k_slab: int = 0  # X_f columns and U rows of a k-slab (8, 16 or 32)
+    stages: int = 0  # k-slabs in the ring (2 to 4)
+    m_warps: int = 0  # warps along the tile; WARPS // m_warps share its n-tiles
+    m_tiles: int = 0  # m-tiles (16 bins) of a warp: tile_t = 16·m_tiles·m_warps
+    du_parts: int = 0  # K2: parts of dU's runs, kWarps runs each; grid_x // du_parts blocks a part
+    du_chunk: int = 0  # K2: bins of a dU chunk
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -456,6 +477,123 @@ def _group_cols(NB: int, N: int, fits) -> int:
     )
 
 
+# K1/K2's wide-U instance (``csrc/fused_poisson_ll_wide.cu``)
+WIDE_FWD_RUN = {1: 16, 2: 8}  # n-tiles a warp with 1 or 2 m-tiles, at most (kFwdRun1, kFwdRun2)
+WIDE_DU_RUN = 8  # n-tiles of a dU run of two m-tiles, at most (kDuRun)
+WIDE_SLABS = ((32, 3), (32, 2), (16, 4), (16, 3), (16, 2), (8, 2))  # (k-slab, stages), the first that fits
+WIDE_CHUNKS = (64, 32, 16, 8)  # K2's dU chunk, in bins: the first that fits
+# (m_warps, m_tiles) of the wide instance's tile for K1 and K2, widest tile
+# first; at one width K1 takes two m-tiles a warp first (half the B-fragment
+# reads a product) and K2 one (its phase 2 gets the registers)
+WIDE_LAYOUTS = {False: ((8, 2), (4, 2), (8, 1), (2, 2), (4, 1), (1, 2), (2, 1), (1, 1)),
+                True: ((8, 2), (8, 1), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))}
+
+
+def _wide_fwd_words(TM: int, ks: int, stages: int, N: int) -> int:
+    """The wide instance's phase-1 shared memory in 32-bit words (fwd_words
+    in the source): ``stages`` k-slabs, each X_f's (TM rows of ks + 4 words)
+    and U's (ks / 8 k-steps × the n-tiles × 32 lanes, a uint4 each), then
+    the tile's I_rest and S."""
+    return stages * (TM * (ks + 4) + ks // 8 * -(-N // 8) * 128) + 2 * _ceil_to(TM * N, 4)
+
+
+def wide_du_runs(NB: int, N: int) -> tuple:
+    """The wide K2's dU work: (runs a pair of m-tiles, runs, parts). dU's
+    ceil(NB / 16) m-tiles go in pairs, each pair cut into the fewest even
+    runs of at most WIDE_DU_RUN n-tiles, pair by pair; a part is WARPS
+    consecutive runs, one a warp (du_ranges, du_runs, du_parts in the
+    source)."""
+    nr = -(-(-(-N // 8)) // WIDE_DU_RUN)
+    runs = -(-(-(-NB // 16)) // 2) * nr
+    return nr, runs, -(-runs // WARPS)
+
+
+def wide_du_run(NB: int, N: int, part: int, warp: int):
+    """(first m-tile of its pair, first n-tile, n-tiles) of the dU run of
+    ``warp`` in ``part``; None past the last run."""
+    nt = -(-N // 8)
+    nr, runs, _ = wide_du_runs(NB, N)
+    run = part * WARPS + warp
+    if run >= runs:
+        return None
+    mp, rr = divmod(run, nr)
+    return 2 * mp, rr * nt // nr, (rr + 1) * nt // nr - rr * nt // nr
+
+
+def _wide_part_cols(NB: int, N: int) -> tuple:
+    """(columns, row stride) of a dU chunk's X_f part columns: 32 × the most
+    m-tile pairs one part's runs span, and the least stride ≥ that which is
+    ≡ 8 (mod 32) words (part_pairs, part_stride in the source)."""
+    nr, runs, parts = wide_du_runs(NB, N)
+    most = max((min(runs, (p + 1) * WARPS) - 1) // nr - p * WARPS // nr + 1 for p in range(parts))
+    return 32 * most, 32 * most + (8 - 32 * most) % 32
+
+
+def _smem_bytes_wide(NB: int, N: int, TM: int, ks: int, stages: int, chunk: int = 0) -> int:
+    """Mirror of smem_bytes_wide in ``fused_poisson_ll_wide.cu``: the larger
+    of phase 1 (:func:`_wide_fwd_words`) and, for K2 (``chunk`` > 0), phase
+    2 (two buffers each of a chunk's X_f part columns, its dI and its dI
+    split in B-fragment order; after them a part's rows of dU), and the
+    cross-block sums' 4·THREADS words."""
+    du = 0
+    if chunk:
+        cols, stride = _wide_part_cols(NB, N)
+        du = max(2 * (chunk * stride + _ceil_to(chunk * N, 4) + chunk // 8 * -(-N // 8) * 128), cols * N)
+    return 4 * max(_wide_fwd_words(TM, ks, stages, N), du, 4 * THREADS)
+
+
+def wide_fwd_runs(N: int, m_warps: int, m_tiles: int) -> list:
+    """(first m-tile, first n-tile, n-tiles) of each warp's share of a
+    tile's forward in the wide instance: warp w takes the m_tiles m-tiles
+    from m_tiles·(w % m_warps) and an even share of the n-tiles among the
+    WARPS // m_warps warps that share them."""
+    nt, wn = -(-N // 8), WARPS // m_warps
+    return [(m_tiles * (w % m_warps), (w // m_warps) * nt // wn,
+             (w // m_warps + 1) * nt // wn - (w // m_warps) * nt // wn) for w in range(WARPS)]
+
+
+def wide_split_words(NB: int, N: int, k_slab: int) -> int:
+    """Floats of the wide instance's scratch of U split into TF32 parts: the
+    k-steps of ceil(ceil8(NB) / k_slab) slabs × the n-tiles × 32 lanes × 4."""
+    return -(-_ceil_to(NB, 8) // k_slab) * (k_slab // 8) * -(-N // 8) * 128
+
+
+def _wide_plan(T: int, NB: int, N: int, sm_count: int, grad: bool):
+    """The wide instance's plan, or None where it does not fit. A layout of
+    WIDE_LAYOUTS[grad] fits where every warp gets at least one n-tile and
+    at most WIDE_FWD_RUN[m_tiles], and phase 1 fits with a (k-slab, stages)
+    of WIDE_SLABS (of the first two, where any layout fits with them); of
+    those the widest tile (16·m_tiles·m_warps bins) that still gives at
+    least half the SMs a tile, else the narrowest. K2 takes every SM (phase
+    2's parts times their shares of the bins) and the widest chunk of
+    WIDE_CHUNKS that fits."""
+    nt = -(-N // 8)
+    for slabs in (WIDE_SLABS[:2], WIDE_SLABS):  # slabs 32 columns deep where they fit
+        fits = []
+        for wm, mi in WIDE_LAYOUTS[grad]:
+            wn, tm = WARPS // wm, 16 * mi * wm
+            if wn > nt or -(-nt // wn) > WIDE_FWD_RUN[mi]:
+                continue
+            slab = next(((ks, st) for ks, st in slabs if 4 * _wide_fwd_words(tm, ks, st, N) <= SMEM_LIMIT), None)
+            if slab is not None:
+                fits.append((wm, mi, *slab))
+        if fits:
+            break
+    else:
+        return None
+    wm, mi, ks, st = next((f for f in fits if -(-T // (16 * f[0] * f[1])) >= sm_count // 2), fits[-1])
+    tm, parts, chunk = 16 * mi * wm, 0, 0
+    if grad:
+        parts = wide_du_runs(NB, N)[2]
+        chunk = next((c for c in WIDE_CHUNKS if _smem_bytes_wide(NB, N, tm, ks, st, c) <= SMEM_LIMIT), 0)
+        if not chunk or parts > sm_count:
+            return None
+    n_tiles = -(-T // tm)
+    return LaunchPlan(tile_t=tm, n_tiles=n_tiles, grid_x=sm_count if grad else min(sm_count, n_tiles), grid_y=1,
+                      smem_bytes=_smem_bytes_wide(NB, N, tm, ks, st, chunk), groups=1, group_cols=N,
+                      k_slab=ks, stages=st, m_warps=wm, m_tiles=mi, du_parts=parts, du_chunk=chunk)
+
+
 # Shared memory that chain_groups keeps free beside a group (bytes): the 8 KB
 # join scratch of the first chain kernels' layout. With it the groups, and
 # with them the sums of every chain-batched call, stay those of that layout.
@@ -497,7 +635,9 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
     else the value-only one.
 
     K1/K2: G is the least number of column groups whose U slice and two
-    stages of the narrowest tile fit in SMEM_LIMIT (:func:`_group_cols`); K4
+    stages of the narrowest tile fit in SMEM_LIMIT (:func:`_group_cols`);
+    where G > 1, the wide-U instance's plan (:func:`_wide_plan`: G = 1, the
+    fields ``k_slab`` to ``du_chunk`` set) wherever it fits; K4
     its own even groups of at most K4_GROUP_TILES n-tiles
     (:func:`k4_group_cols`).
     The chain kernels take one group: all C·N columns of U and C I_rest
@@ -545,6 +685,10 @@ def launch_plan(T: int, NB: int, N: int, sm_count: int, grad: bool, chains=None,
             return _smem_bytes(NB, W, tile)
 
         W = _group_cols(NB, N, lambda W: smem(W, step))
+        if W < N:  # U does not stay resident: the wide instance, where it fits
+            wide = _wide_plan(T, NB, N, sm_count, grad)
+            if wide is not None:
+                return wide
         slices = -(-du_tiles(NB, W) // THREADS)
     else:
         # K4 (bfloat16, no chain axis): its own column groups
@@ -654,12 +798,15 @@ def _library(x_f):
 
 
 def _launch(with_grad: bool, x_f, u, i_rest, s, dt: float):
-    """K1/K2, or K4-fwd/K4-vg for a bfloat16 X_f."""
-    lib, tag = _library(x_f)
+    """K1/K2 (their wide-U instance where the plan says so), or
+    K4-fwd/K4-vg for a bfloat16 X_f."""
     T, NB = x_f.shape
     N = u.shape[1]
     dev = x_f.device
     plan = launch_plan(T, NB, N, _sm_count(dev.index), with_grad, x_bytes=x_f.element_size())
+    if plan.k_slab:
+        return _launch_wide(with_grad, plan, x_f, u, i_rest, s, dt)
+    lib, tag = _library(x_f)
     # float4 rows: dU (K2), then one value per column group
     width = _ceil_to((NB * N if with_grad else 0) + plan.groups, 4)
     part = torch.empty((plan.grid_x, width), dtype=torch.float32, device=dev)
@@ -681,6 +828,43 @@ def _launch(with_grad: bool, x_f, u, i_rest, s, dt: float):
     LAUNCHES[key] += 1
     if with_grad:
         return out[NB * N], out[: NB * N].view(NB, N), d_irest
+    return out[0]
+
+
+def _launch_wide(with_grad: bool, plan: LaunchPlan, x_f, u, i_rest, s, dt: float):
+    """K1/K2's wide-U instance (``csrc/fused_poisson_ll_wide.cu``), counted
+    under K1's and K2's keys of :data:`LAUNCHES` and in
+    :data:`WIDE_LAUNCHES`."""
+    from theano_pyglm_torch.ops.cuda_loader import load_fused_ll_wide
+
+    lib = load_fused_ll_wide()
+    T, NB = x_f.shape
+    N = u.shape[1]
+    dev = x_f.device
+    # dU's partial rows (K2: grid_x // du_parts of them) and a value per block
+    dw = _ceil_to(NB * N, 4) if with_grad else 0
+    rows = plan.grid_x // plan.du_parts if with_grad else 0
+    part = torch.empty(rows * dw + plan.grid_x, dtype=torch.float32, device=dev)
+    out = torch.empty(dw + 4, dtype=torch.float32, device=dev)
+    usp = torch.empty(wide_split_words(NB, N, plan.k_slab), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sizes = (T, NB, N, plan.tile_t, plan.k_slab, plan.stages, plan.m_warps, plan.m_tiles, plan.du_parts,
+             plan.du_chunk, plan.grid_x, plan.smem_bytes, dev.index, float(dt), math.log(dt), stream)
+    ins = (x_f.data_ptr(), u.data_ptr(), i_rest.data_ptr(), s.data_ptr())
+    scratch = (usp.data_ptr(), part.data_ptr(), out.data_ptr(), _barrier(dev, stream).data_ptr())
+    key = "vg" if with_grad else "fwd"
+    if with_grad:
+        d_irest = torch.empty((T, N), dtype=torch.float32, device=dev)
+        err = lib.fused_ll_vg_wide(*ins, d_irest.data_ptr(), *scratch, *sizes)
+    else:
+        err = lib.fused_ll_fwd_wide(*ins, *scratch, *sizes)
+    if err != 0:
+        msg = lib.fused_ll_error_string(err).decode()
+        raise RuntimeError(f"fused Poisson-LL kernel launch failed: {msg} ({err})")
+    LAUNCHES[key] += 1
+    WIDE_LAUNCHES[key] += 1
+    if with_grad:
+        return out[dw], out[: NB * N].view(NB, N), d_irest
     return out[0]
 
 

@@ -40,7 +40,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FLAGS = ("NO_COPY", "NO_FWD", "NO_BWD", "NO_EPI", "EXIT", "PLAIN_LAUNCH", "NO_TILES", "NO_DIOUT", "PROLOGUE",
-         "NO_ROWS", "NO_SUMS", "NO_U", "NO_RELAYOUT", "NO_UCOPY", "NO_SPLIT", "ONE_PRODUCT", "SPLIT_U")
+         "NO_ROWS", "NO_SUMS", "NO_U", "NO_RELAYOUT", "NO_UCOPY", "NO_SPLIT", "ONE_PRODUCT", "SPLIT_U", "NO_DU",
+         "NO_DI_SPLIT")
 VARIANTS = {
     "full": (),
     "exit": ("EXIT",),  # returns at once: launch and timing overhead
@@ -67,6 +68,12 @@ VARIANTS = {
     # off (three products of unsplit operands), or one product of three
     "no_split": ("NO_SPLIT",),
     "one_product": ("ONE_PRODUCT",),
+    # K1/K2's wide-U instance: K2 without its dU phase (the forward and dI
+    # only); dU without the split of dI into TF32 parts; the products only
+    # (no copies after the first k-slabs and chunk, no epilogue)
+    "no_du": ("NO_DU",),
+    "no_di_split": ("NO_DI_SPLIT",),
+    "products_only": ("NO_COPY", "NO_EPI"),
     # where the forward reads U pre-split into TF32 big and small parts:
     # U split on every k-step instead (the pre-split slots then hold U itself)
     "split_u": ("SPLIT_U",),
@@ -175,6 +182,31 @@ EDITS = {
         ("            if (lead_y && !whole)\n#pragma unroll 4\n",
          "            if (!PROBE_NO_DIOUT && lead_y && !whole)\n#pragma unroll 4\n"),
     ],
+    # K1/K2's wide-U instance (a copy switched off still completes its
+    # barrier's phase: every thread arrives, thread 0 expects no bytes)
+    "fused_poisson_ll_wide.cu": _COMMON + [
+        ("    const bool vec = (NB & 3) == 0", "    if (PROBE_EXIT) return;\n    const bool vec = (NB & 3) == 0"),
+        ("        if (step >= steps) return;\n",
+         "        if (step >= steps) return;\n"
+         "        if (PROBE_NO_COPY && step >= NSTG - 1) {\n"
+         "            if (tid == 0) mbar_expect_tx(&s_full[step % NSTG], 0u);\n"
+         "            cp_async_arrive(&s_full[step % NSTG]);\n"
+         "            return;\n"
+         "        }\n"),
+        ("        auto issue_group = [&](int xi, int d0, int d1) {\n",
+         "        auto issue_group = [&](int xi, int d0, int d1) {\n"
+         "            if (PROBE_NO_COPY && xi > 0) xi = d0 = 1 << 30, d1 = -1;\n"),
+        ("for (int kk = 0; kk < KSS; ++kk) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KSS); ++kk) {"),
+        ("const int kl = cdiv(chunk_rows(ci), 8);", "const int kl = PROBE_NO_BWD ? 0 : cdiv(chunk_rows(ci), 8);"),
+        ("for (int f = tid; f < cdiv(rows, 8) * NT * 32; f += kThreads) {",
+         "for (int f = tid; f < (PROBE_NO_DI_SPLIT ? 0 : cdiv(rows, 8) * NT * 32); f += kThreads) {"),
+        ("                if (j < ntw && r < rows && col < N) {",
+         "                if (PROBE_NO_EPI) part_v += acc[i][j][2 * h] + acc[i][j][2 * h + 1];  // kept live\n"
+         "                if (!PROBE_NO_EPI && j < ntw && r < rows && col < N) {"),
+        ("        const int my_chunks = p < P && b_hi > b_lo",
+         "        const int my_chunks = !PROBE_NO_DU && p < P && b_hi > b_lo"),
+        ("    if (kGrad) sum_part_rows(part, out", "    if (kGrad && !PROBE_NO_SUMS) sum_part_rows(part, out"),
+    ],
     # the four chain kernels: K3-fwd, K3-vg, K4-fwd-chains, K4-vg-chains
     "fused_ll_chains.cu": _COMMON + [
         ("for (int kk = 0; kk < KP; kk += 16) {", "for (int kk = 0; kk < (PROBE_NO_FWD ? 0 : KP); kk += 16) {"),
@@ -218,6 +250,7 @@ EDITS = {
 }
 # the variants that mean something for a value-only kernel (no dU, no dI)
 VALUE_VARIANTS = ("full", "exit", "exit_plain", "no_copy", "no_fwd", "no_epi", "copy_only", "empty", "prologue",
+                  "products_only",
                   "no_tiles", "no_tiles_sums", "prologue_no_u", "no_tiles_no_u", "prologue_no_relayout",
                   "prologue_no_ucopy", "no_split", "one_product", "split_u")
 FLAGSHIP, DT = (60_000, 135, 27), 1e-3
@@ -281,7 +314,8 @@ class _Swapped:
     """While the block runs, the tree's loader hands out ``lib`` for
     ``source``, with the signatures the real build's entry points get."""
 
-    NAMES = [f"fused_ll_{k}{sfx}" for k in ("fwd", "vg", "fwd_chains", "vg_chains") for sfx in ("", "_bf16")]
+    NAMES = [f"fused_ll_{k}{sfx}" for k in ("fwd", "vg", "fwd_chains", "vg_chains") for sfx in ("", "_bf16")] + \
+        ["fused_ll_fwd_wide", "fused_ll_vg_wide"]
 
     def __init__(self, cuda_loader, source, lib):
         self.mod, self.source, self.lib = cuda_loader, source, lib
@@ -313,10 +347,14 @@ def _card() -> str:
 
 def probe_one_chain(T, NB, N, card, out_dir, bf16=False) -> None:
     """K1/K2 (``bf16``: K4-fwd/K4-vg on the X_f rounded to bf16) with each
-    part off in turn."""
+    part off in turn; K1/K2 from the wide-U instance's source where the
+    plan takes it."""
     from theano_pyglm_torch.ops import cuda_loader, kernels
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     source = cuda_loader.SOURCE_BF16 if bf16 else cuda_loader.SOURCE
+    if not bf16 and getattr(kernels.launch_plan(T, NB, N, sms, True), "k_slab", 0):
+        source = cuda_loader.SOURCE_WIDE
     libs = build(source, out_dir)
     r = np.random.RandomState(0)
     ops = [torch.as_tensor(a, dtype=torch.float32, device="cuda").contiguous() for a in
@@ -324,7 +362,6 @@ def probe_one_chain(T, NB, N, card, out_dir, bf16=False) -> None:
     if bf16:
         ops[0] = ops[0].to(torch.bfloat16)
     flush = torch.empty(40 * 2**20, dtype=torch.float32, device="cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     names = (("K4-fwd", "K4-vg") if bf16 else ("K1", "K2"))
     for k, grad in zip(names, (False, True)):
         plan = kernels.launch_plan(T, NB, N, sms, grad, x_bytes=ops[0].element_size())

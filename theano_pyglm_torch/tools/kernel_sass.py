@@ -3,9 +3,10 @@
 compared.
 
 Compiles each checkout's ``theano_pyglm_torch/csrc/fused_poisson_ll.cu`` (and
-``fused_poisson_ll_bf16.cu``, ``fused_ll_vg_chains.cu`` and
+``fused_poisson_ll_wide.cu``, ``fused_poisson_ll_bf16.cu``, ``fused_ll_vg_chains.cu`` and
 ``fused_ll_chains.cu`` where the checkout has them) to cubins with this checkout's nvcc flags, and prints for
-each kernel (K1, K2, K3-fwd / K3-vg and the four K4 where the checkout has
+each kernel (K1, K2, their wide-U instances K1-wide and K2-wide (one line
+each of their m-tile counts), K3-fwd / K3-vg and the four K4 where the checkout has
 them, from whichever source holds them) its registers, stack and
 instruction count, and how many lines of its SASS differ from the first
 checkout's, once the addresses, the encodings and the kernel parameters'
@@ -36,7 +37,10 @@ from theano_pyglm_torch.ops import cuda_loader  # noqa: E402
 # the four chain kernels' chains_tiles<X, kGrad>
 _TEMPLATE = re.compile(r"fused_ll(_bf16)?_tiles<([^,>]+)(?:, ?([^>]+))?>")
 _CHAINS = re.compile(r"(?:vg_)?chains_tiles<([^,>]+)(?:, ?([^>]+))?>")
-_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_bf16.cu", "fused_ll_vg_chains.cu", "fused_ll_chains.cu")
+# K1/K2's wide-U instance: fused_ll_wide_tiles<kGrad, kMI>
+_WIDE = re.compile(r"fused_ll_wide_tiles<([^,>]+), ?(?:\(int\))?([0-9]+)>")
+_SOURCES = ("fused_poisson_ll.cu", "fused_poisson_ll_wide.cu", "fused_poisson_ll_bf16.cu", "fused_ll_vg_chains.cu",
+            "fused_ll_chains.cu")
 _TRUE = ("true", "(bool)1")
 _MASKS = [
     (re.compile(r"/\*[0-9a-f]{4,}\*/"), ""),  # the instruction's address
@@ -46,6 +50,9 @@ _MASKS = [
 
 
 def _kernel(demangled: str):
+    m = _WIDE.search(demangled)
+    if m is not None:
+        return f"K{2 if m.group(1) in _TRUE else 1}-wide (m-tiles {m.group(2)})"
     m = _CHAINS.search(demangled)
     if m is not None:
         grad = m.group(2) is None or m.group(2) in _TRUE  # vg_chains_tiles<X>: gradients
