@@ -75,10 +75,13 @@ Phases, each of which raises on a mismatch or a non-finite value:
    acceptance above 0.5, both sub-blocks' Laplace modes (1e-4 rel. L2) and
    the log-joint (1e-5 rel.) of chain 0's final state against the CPU in
    float64, 0 synchronizing calls in the glm stage and the full sweep,
-   stage times and device busy time. 7b: standard_glm at N=27, T=60,000
-   with the stimulus type 'shared' (DB=5), 1 chain x (40 + 10): launches,
-   0 synchronizing calls in the glm stage, both sub-blocks' modes against
-   the CPU. 7c: config 3's shape (N=10, T=30,000) with softplus, then with
+   stage times and device busy time, the batched glm stage with at most
+   half the device activities of C = 1 x 4 in turn (each glm update runs
+   once a sweep for all chains). 7b: standard_glm at N=27, T=60,000
+   with the stimulus type 'shared' (DB=5), 4 chains x (40 + 10) in one
+   batched sweep: launches (K3, no K1/K2), 0 synchronizing calls in the glm
+   stage and the full sweep, both sub-blocks' modes of chain 0 against the
+   CPU, stage times and activities as 7a's. 7c: config 3's shape (N=10, T=30,000) with softplus, then with
    Bernoulli observations, 1 chain x 10 sweeps of the autograd branches: no
    fused launch, _bin_ll_derivs against the CPU (1e-4). 7d: phase 3's
    flagship, 1 chain x (40 + 10) with glm_update='hmc' and again with
@@ -174,9 +177,9 @@ Configs 2 and 3 keep their 20 warmup sweeps (step size only), as before.
 Phase 10's sampler runs 20 warmup sweeps (step size only): its depth is
 cut before any other phase's.
 
-The samplers of more than one chain (phases 5, 6 configs 2-4, 7a, 7f) run
-one batched sweep over their chains and launch K3; the one-chain samplers
-(7b, 7c, 7d, 8d, 9) run the same sweep at C = 1, where K1/K2 carry the
+The samplers of more than one chain (phases 5, 6 configs 2-4, 7a, 7b, 7f)
+run one batched sweep over their chains and launch K3; the one-chain
+samplers (7c, 7d, 8d, 9) run the same sweep at C = 1, where K1/K2 carry the
 likelihood. With a bf16 design (phase 10) every sampler evaluation is a
 K4-chains launch, at any C.
 
@@ -922,7 +925,9 @@ def time_sweeps(pop, data, fit, state, card, label="", stages=SWEEP_STAGES, chec
     :func:`_require_modes_agree`). For each: ms per sweep over 3 sweeps, the
     synchronizing calls of one sweep, then (last) the device's activities,
     busy ms and idle share of one sweep under torch.profiler. Returns
-    {stage or None: the batched sweep's synchronizing calls}."""
+    ({stage or None: the batched sweep's synchronizing calls},
+    {stage or None: (the batched sweep's device activities, those of
+    C = 1 in turn or None where C = 1)})."""
     n_rep = 3  # depth cut (see the module note)
     C = state["params"]["A"].shape[0]
     gens = [torch.Generator(device=pop.device).manual_seed(SEED + 10 + c) for c in range(C)]
@@ -958,13 +963,24 @@ def time_sweeps(pop, data, fit, state, card, label="", stages=SWEEP_STAGES, chec
             log(f"{label}{'full sweep' if stage is None else 'stage ' + stage}, {how}: {timed[how, stage][0]:.3f} "
                 f"ms per sweep ({n_rep} sweeps); {len(syncs)} synchronizing calls {sorted(set(syncs))} [{card}]")
     # profiled last: once the profiler has attached, host launches stay slower
+    activities = {}
     for (how, stage), (ms, st) in timed.items():
         run, sweep = runs[how][0], sweeps[stage]
         wall, busy, n_dev = device_busy_ms(lambda: run(sweep, st))
+        activities.setdefault(stage, [None, None])[0 if run is batched else 1] = n_dev
         log(f"{label}{'full sweep' if stage is None else 'stage ' + stage}, {how}, under torch.profiler: {n_dev} "
             f"device activities taking {busy:.3f} ms ({wall:.3f} ms wall profiled); against the unprofiled "
             f"{ms:.3f} ms the device idles {100 * (1 - busy / ms):.1f} % [{card}]")
-    return syncs_of
+    return syncs_of, {k: tuple(v) for k, v in activities.items()}
+
+
+def _require_batched_glm(label, activities) -> None:
+    """The glm stage batched over the chains: at most half the device
+    activities of the same stage at C = 1 on each chain in turn (one
+    chain's update, not C of them, in a batched sweep)."""
+    batched, in_turn = activities["glm"]
+    require(2 * batched <= in_turn, f"{label}: the batched glm stage has {batched} device activities, "
+                                    f"C = 1 in turn {in_turn}: not batched over the chains")
 
 
 # --- phase 6 ----------------------------------------------------------------
@@ -1195,8 +1211,8 @@ def accept_config4(dev, card) -> dict:
         f"{diag['accept_rate_imp']}, adjacency {diag['accept_rate_adjacency']}; planted-partition ARI per "
         f"chain over the {C4_SAMPLES} draws {[round(a, 3) for a in aris]} (reported only)")
 
-    syncs = time_sweeps(pop, data, init, stack_states(states), card, label="config 4 ", stages=("discrete",),
-                        check_modes=True)
+    syncs, _ = time_sweeps(pop, data, init, stack_states(states), card, label="config 4 ", stages=("discrete",),
+                           check_modes=True)
     require(not syncs["discrete"] and not syncs[None], f"config 4: synchronizing calls {syncs}")
 
     # card (float32) against the CPU (float64) on chain 0's final state
@@ -1296,7 +1312,9 @@ def variants_st(dev, card) -> dict:
     the sweep with the bilinear glm block; launches, finiteness, accept
     rates, card f32 vs CPU f64 of both sub-blocks' modes and the log-joint,
     stage times with 0 synchronizing calls in the glm stage and the full
-    sweep. Returns (the path's launches, what 7e and 7f reuse)."""
+    sweep, the batched glm stage with at most half the device activities of
+    C = 1 x 4 in turn. Returns (the path's launches, what 7e and 7f
+    reuse)."""
     spec = make_model("spatiotemporal_glm", N)
     pop = CountingPopulation(spec, device=dev)
     true, S, stim = _simulated(pop, SEED + 70, T, "7a spatiotemporal_glm")
@@ -1343,15 +1361,19 @@ def variants_st(dev, card) -> dict:
         f"(b) w_t {errs[1]:.3e}; log-joint rel {err_lj:.3e} ({lj32:.3f} vs {lj64:.3f})")
     require(max(errs) <= 1e-4, f"7a: Laplace theta* rel err {errs}")
     require(err_lj <= 1e-5, f"7a: log-joint rel err {err_lj}")
-    syncs = time_sweeps(pop, data, fit, stack_states(states), card, label="7a ", stages=("glm", "imp"))
+    syncs, activities = time_sweeps(pop, data, fit, stack_states(states), card, label="7a ", stages=("glm", "imp"))
     require(not syncs["glm"] and not syncs[None], f"7a: synchronizing calls {syncs}")
+    _require_batched_glm("7a", activities)
     return path, {"pop": pop, "data": data, "fit": fit, "true": true, "samples": samples}
 
 
 def variants_shared(dev, card) -> dict:
     """7b: standard_glm at N=27, T=60,000 with its stimulus section's type
-    set to 'shared' (DB=5): 1 chain; launches, 0 synchronizing calls in the
-    glm stage, card vs CPU of both sub-blocks' modes."""
+    set to 'shared' (DB=5): 4 chains in one batched sweep (K3, no K1/K2);
+    launches, finiteness, accept rates, card vs CPU of both sub-blocks'
+    modes on chain 0's final state, stage times with 0 synchronizing calls
+    in the glm stage and the full sweep, the batched glm stage with at most
+    half the device activities of C = 1 x 4 in turn."""
     spec = make_model("standard_glm", N)
     spec["bkgd"]["type"] = "shared"
     pop = CountingPopulation(spec, device=dev)
@@ -1361,32 +1383,33 @@ def variants_shared(dev, card) -> dict:
     init = smart_initialize(pop, data, torch.Generator().manual_seed(SEED))
     before = _counted(pop)
     t0 = time.perf_counter()
-    samples, diag, state = gibbs_sample(
-        pop, data, torch.Generator(device=dev).manual_seed(SEED + 71), n_samples=SHARED_SAMPLES,
-        n_warmup=SHARED_WARMUP, chunk_size=SHARED_SAMPLES, init_params=init,
+    samples, diag, states = gibbs_sample_chains(
+        pop, data, SEED + 71, n_chains=ST_CHAINS, n_samples=SHARED_SAMPLES, n_warmup=SHARED_WARMUP,
+        chunk_size=SHARED_SAMPLES, init_params=init, init_jitter=0.05,
     )
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     path, ll_evals = _since(pop, before)
     sweeps = SHARED_WARMUP + SHARED_SAMPLES
-    log(_sampler_ms("7b sampler", t_run, 1, sweeps, card) + f"; launches {path}; accept glm "
-        f"{diag['accept_rate_glm']:.3f}, imp {diag['accept_rate_imp']:.3f}")
-    _require_sweep_launches("7b sampler", path, ll_evals, 1, sweeps)
-    _require_chains("7b sampler", [state], samples)
+    log(_sampler_ms("7b sampler", t_run, ST_CHAINS, sweeps, card) + f"; launches {path}; accept glm "
+        f"{diag['accept_rate_glm']}, imp {diag['accept_rate_imp']}")
+    _require_sweep_launches("7b sampler", path, ll_evals, ST_CHAINS, sweeps)
+    _require_chains("7b sampler", states, samples)
     _require_accept_rates("7b sampler", diag)
 
-    p0 = state["params"]
+    p0 = states[0]["params"]
     cpu, data64, p64 = _cpu64(pop, data, stim, p0)
     theta0 = _glm_theta0(pop, data, init, "shared")
     with torch.no_grad():
         fits32 = gibbs.glm_laplace_fit_shared(pop, p0, data, theta0)
         fits64 = gibbs.glm_laplace_fit_shared(cpu, p64, data64, {k: v.cpu().double() for k, v in theta0.items()})
     errs = [rel_l2(a[0], b[0]) for a, b in zip(fits32, fits64)]
-    log(f"7b card f32 vs CPU f64 on the final state: Laplace theta* rel-L2 (a) [bias, gain] {errs[0]:.3e}, "
+    log(f"7b card f32 vs CPU f64 on chain 0's final state: Laplace theta* rel-L2 (a) [bias, gain] {errs[0]:.3e}, "
         f"(b) w_stim_shared {errs[1]:.3e}")
     require(max(errs) <= 1e-4, f"7b: Laplace theta* rel err {errs}")
-    syncs = time_sweeps(pop, data, init, stack_states([state]), card, label="7b ", stages=("glm",))
-    require(not syncs["glm"], f"7b: synchronizing calls in the glm stage {syncs['glm']}")
+    syncs, activities = time_sweeps(pop, data, init, stack_states(states), card, label="7b ", stages=("glm",))
+    require(not syncs["glm"] and not syncs[None], f"7b: synchronizing calls {syncs}")
+    _require_batched_glm("7b", activities)
     return (path,)
 
 

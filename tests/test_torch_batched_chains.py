@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import theano_pyglm_torch as pt
-from theano_pyglm_torch.inference import gibbs
+from theano_pyglm_torch.inference import gibbs, mcmc
 from theano_pyglm_torch.inference.hmc import HMCState
 from theano_pyglm_torch.inference.map import split_params
 from theano_pyglm_torch.inference.mcmc import chain_state, init_mcmc_state, make_sweep, stack_states
@@ -585,35 +585,60 @@ def _tensor_leaves(x, where="state"):
             yield from _tensor_leaves(v, f"{where}.{k}")
 
 
-def _sweep_problem(name):
+#: the shared stimulus of tests/test_torch_variants.py (DB = 3)
+SHARED_BKGD = {
+    "type": "shared", "D_stim": 1, "dt_max": 0.3, "mu": 0.0, "sigma": 0.5,
+    "basis": {"type": "cosine", "n_bas": 3, "a": 1.0, "b": 1.0, "norm": True},
+}
+
+#: the sweep cases: (template, the sweep's keywords)
+SWEEP_CASES = {
+    "distance_weighted_model": ("distance_weighted_model", {}),
+    "sparse_weighted_model": ("sparse_weighted_model", {}),
+    "sbm_weighted_model": ("sbm_weighted_model", {}),
+    "spatiotemporal_glm": ("spatiotemporal_glm", {}),
+    "shared_stimulus": ("standard_glm", {}),
+    "glm_hmc": ("distance_weighted_model", {"glm_update": "hmc"}),
+}
+
+
+def _sweep_problem(case):
+    name, sweep_kw = SWEEP_CASES[case]
     spec = pt.make_model(name, 5)
     if name == "sparse_weighted_model":  # the ER density and the weight hypers, inferred
         spec["network"]["graph"]["infer_rho"] = True
         spec["network"]["weight"]["infer_hypers"] = True
+    if name == "spatiotemporal_glm":
+        spec["bkgd"]["D_stim"] = 4
+    if case == "shared_stimulus":
+        spec["bkgd"] = dict(SHARED_BKGD)
     pop = pt.Population(spec, device="cpu", dtype=torch.float64)
     r = np.random.RandomState(0)
     S = r.poisson(0.1, (300, 5)).astype(float)
-    data = pop.prepare_data(S, stim=r.randn(300, 1))
-    return pop, data, [pop.sample(torch.Generator().manual_seed(10 + c)) for c in range(3)]
+    data = pop.prepare_data(S, stim=r.randn(300, pop.D_stim))
+    return pop, data, [pop.sample(torch.Generator().manual_seed(10 + c)) for c in range(3)], sweep_kw
 
 
-@pytest.mark.parametrize("name", ["distance_weighted_model", "sparse_weighted_model", "sbm_weighted_model"])
+@pytest.mark.parametrize("name", list(SWEEP_CASES))
 def test_batched_sweep_equals_one_chain_runs(name, monkeypatch):
-    """CPU, float64, N=5, T=300: 3 sweeps (adapting) of 3 chains in one
-    batched sweep equal, chain by chain, 3 sweeps of the batched sweep at
+    """CPU, float64, N=5, T=300: 5 sweeps (adapting) of 3 chains in one
+    batched sweep equal, chain by chain, 5 sweeps of the batched sweep at
     C = 1 and of the one-chain sweep, each with a generator seeded as that
     chain's. Every tensor of the state matches to 1e-9 of the leaf's largest
     magnitude; A and the SBM types y exactly. The sparse model's
     birth-death runs on a time subsample (each chain draws its own
-    offsets)."""
+    offsets). The stimulus variants: the spatiotemporal and the shared glm
+    blocks (D_stim=4; DB=3) and the glm block by whitened HMC, which from a
+    prior draw rejects its first 3 transitions while its step size adapts
+    (its variance sums then hold only the rounding of the whitening)."""
     if name == "sparse_weighted_model":
         monkeypatch.setattr(gibbs, "SUBSAMPLE_T", 128)
         monkeypatch.setattr(gibbs, "SUBSAMPLE_BLK", 32)
-    pop, data, inits = _sweep_problem(name)
-    sweep = make_sweep(pop, data, n_leapfrog=3, fisher_params=inits[0])
+    pop, data, inits, sweep_kw = _sweep_problem(name)
+    sweep = make_sweep(pop, data, n_leapfrog=3, fisher_params=inits[0], **sweep_kw)
 
     def run(gens, state):
-        for _ in range(3):
+        for _ in range(5):
             state = sweep(gens, state, True, 1.0)
         return state
 
@@ -634,6 +659,31 @@ def test_batched_sweep_equals_one_chain_runs(name, monkeypatch):
                     assert torch.equal(g, w), k
                 else:
                     assert float((g - w).abs().max()) <= 1e-9 * max(float(w.abs().max()), 1e-300), k
+
+
+@pytest.mark.parametrize("name,update", [("spatiotemporal_glm", "update_glm_laplace_st"),
+                                         ("shared_stimulus", "update_glm_laplace_shared")])
+def test_batched_sweep_calls_the_glm_update_once(name, update, monkeypatch):
+    """With 3 chains the sweep calls the variant's glm Laplace update once a
+    sweep, on all chains' params at once (a chain axis of 3), not once a
+    chain."""
+    pop, data, inits, _ = _sweep_problem(name)
+    bk_type = pop.spec["bkgd"]["type"]
+    fn = mcmc._GLM_LAPLACE[bk_type]
+    assert fn is getattr(gibbs, update)
+    calls = []
+
+    def counted(generator, pop_, params, *args, **kw):
+        calls.append((len(generator), tuple(params["bias"].shape)))
+        return fn(generator, pop_, params, *args, **kw)
+
+    monkeypatch.setitem(mcmc._GLM_LAPLACE, bk_type, counted)
+    sweep = make_sweep(pop, data, n_leapfrog=3, fisher_params=inits[0])
+    state = init_mcmc_state(pop, stack_states(inits))
+    for _ in range(2):
+        state = sweep([torch.Generator().manual_seed(100 + c) for c in range(3)], state, True, 1.0)
+    assert calls == [(3, (3, 5))] * 2
+    assert state["glm"].accept_rate.shape == (3,)
 
 
 # --- CUDA: K3 against its plain version and against K1/K2 ----------------------

@@ -3,7 +3,8 @@ theano_pyglm_torch/entry.py) on the CPU, against the JAX package and the
 port's own one-process runs.
 
 One two-rank gloo run (tests/torch_parallel_worker.py, torch and the port
-only) computes, on each rank: the chain-sharded sampler on two models, a
+only) computes, on each rank: the chain-sharded sampler on three models (the
+sparse, the distance and the spatiotemporal-stimulus one), a
 stopped-and-resumed checkpointed run, the neuron-sharded value and
 gradient on three models and the neuron-sharded MAP. Meanwhile this
 process computes the references: the port's one-process runs and the JAX
@@ -34,7 +35,7 @@ from theano_pyglm_torch.parallel.neurons import neuron_partition_specs
 from torch_parity import to_np
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
-SEEDS = {"sparse": 0, "distance": 1, "vg_sparse": 0, "vg_distance": 2, "vg_shared": 3, "map": 7}
+SEEDS = {"sparse": 0, "distance": 1, "spatiotemporal": 4, "vg_sparse": 0, "vg_distance": 2, "vg_shared": 3, "map": 7}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -59,7 +60,7 @@ def _inputs():
         arrays.update({f"{name}/params/{k}": np.asarray(v) for k, v in params.items()})
         r = np.random.RandomState(seed)
         arrays[f"{name}/S"] = r.poisson(0.05, size=(T, N)).astype(float)
-        arrays[f"{name}/stim"] = r.randn(T, 1)
+        arrays[f"{name}/stim"] = r.randn(T, W.spec(name, tpu.make_model)["bkgd"].get("D_stim", 1))
         if name == "map":
             S, _ = pop_j.simulate(jax.random.PRNGKey(1), pop_j.sample(jax.random.PRNGKey(0)), T)
             arrays[f"{name}/S"] = np.asarray(S, dtype=float)
@@ -165,7 +166,7 @@ def test_chain_sharded_sampler_equals_one_process_run(run, name):
     want = {k: v for k, v in one.items() if k.startswith(pre)}
     got = {k: v for k, v in ranks[0].items() if k.startswith(pre)}
     assert set(got) == set(want)
-    assert got[pre + "samples/W"].shape[:2] == (10, 4)
+    assert got[pre + "samples/bias"].shape[:2] == (10, 4)
     assert got[pre + "diag/accept_rate_glm"].shape == (4,)
     assert got[pre + "diag/accept_rate_adjacency"].shape == (4,)
     assert {k.split("/")[3] for k in got if k.startswith(pre + "states/")} == {"0", "1", "2", "3"}

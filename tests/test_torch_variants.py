@@ -3,7 +3,8 @@ against the JAX package and against exact answers, in float64 on the CPU.
 
 Deterministic pieces match the JAX functions to 1e-6 relative: the Newton
 modes and Cholesky factors of the spatiotemporal and shared glm sub-blocks
-(read from the JAX functions themselves while they run), the whitening
+(read from the JAX functions themselves while they run), also on 3 chains'
+params at once against the JAX update on each chain's, the whitening
 factor of the glm HMC fallback (from JAX's sweep closure, to 1e-12) and a
 whitened leapfrog trajectory from the same momentum. The stochastic updates
 are held to exact laws: the spatiotemporal sub-block (b) and the shared
@@ -127,6 +128,70 @@ def test_shared_subblock_fits_match_jax(monkeypatch):
     p_b = {**p_t, **{k: torch.tensor(np.asarray(out_j[k])) for k in ("bias", "gain")}}
     _, fit_b = gibbs_t.glm_laplace_fit_shared(pop_t, p_b, d_t, th0_t)
     _assert_fit(fit_b, modes[1], neg_h[1])
+
+
+def _jax_fits_per_chain(monkeypatch, update_j, pop_j, chains, d_j, th0_j, post_a):
+    """For each chain's params, the JAX update's own Newton modes and −H*
+    (:func:`_capture_jax_fits`) and its post-(a) values of the leaves
+    ``post_a``, stacked on a leading chain axis."""
+    modes, neg_h, after_a = [], [], []
+    for p in chains:
+        m, h = _capture_jax_fits(monkeypatch)
+        out = update_j(jax.random.PRNGKey(0), pop_j, {k: jnp.asarray(to_np(v)) for k, v in p.items()}, d_j, th0_j)
+        monkeypatch.undo()
+        modes.append(m)
+        neg_h.append(h)
+        after_a.append({k: torch.tensor(np.asarray(out[k])) for k in post_a})
+    stack = lambda xs: [np.stack(x) for x in zip(*xs)]  # noqa: E731
+    return stack(modes), stack(neg_h), mcmc_t.stack_states(after_a)
+
+
+def _chains(pop_t, p_t, C=3):
+    """C chains' params: ``p_t`` and C − 1 more prior draws."""
+    return [p_t] + [pop_t.sample(torch.Generator().manual_seed(c)) for c in range(1, C)]
+
+
+def test_batched_st_subblock_fits_match_jax(monkeypatch):
+    """glm_laplace_fit_st on 3 chains' params stacked (D_stim=4, B=5, the
+    seeds shared): each chain's θ* and −H* of both sub-blocks against the
+    JAX update's own on that chain's params, 1e-6; (b) at JAX's post-(a)
+    [bias, w_s] of each chain."""
+    pop_j, pop_t, _, p_t, d_j, d_t = build_pair_light(_spec("spatiotemporal_glm", 3, D_stim=4), T=300)
+    chains = _chains(pop_t, p_t)
+    th0_t = {k: p_t[k] + 0.2 for k in ("bias", "w_stim_s", "w_stim_t")}
+    th0_j = {k: jnp.asarray(to_np(v)) for k, v in th0_t.items()}
+    modes, neg_h, after_a = _jax_fits_per_chain(monkeypatch, gibbs_j.update_glm_laplace_st, pop_j, chains, d_j,
+                                                th0_j, ("bias", "w_stim_s"))
+    assert [m.shape for m in modes] == [(3, 3, 5), (3, 3, 5)]
+    batched = mcmc_t.stack_states(chains)
+    fit_a, _ = gibbs_t.glm_laplace_fit_st(pop_t, batched, d_t, th0_t)
+    _, fit_b = gibbs_t.glm_laplace_fit_st(pop_t, {**batched, **after_a}, d_t, th0_t)
+    for fit, mode, nh in ((fit_a, modes[0], neg_h[0]), (fit_b, modes[1], neg_h[1])):
+        assert fit[0].shape == (3, 3, 5) and fit[1].shape == (3, 3, 5, 5)
+        for c in range(3):
+            _assert_fit((fit[0][c], fit[1][c]), mode[c], nh[c])
+
+
+def test_batched_shared_subblock_fits_match_jax(monkeypatch):
+    """glm_laplace_fit_shared on 3 chains' params stacked (DB=3, the seeds
+    shared): each chain's [bias, gain] θ* and −H*, and its pooled
+    global-filter mode and −H*, against the JAX update's own on that
+    chain's params, 1e-6; (b) at JAX's post-(a) [bias, gain] of each
+    chain."""
+    pop_j, pop_t, _, p_t, d_j, d_t = build_pair_light(_spec("standard_glm", 3, bkgd=SHARED_BKGD), T=300)
+    chains = _chains(pop_t, p_t)
+    th0_t = {"bias": p_t["bias"] - 0.3, "gain": p_t["gain"] + 0.2, "w_stim_shared": p_t["w_stim_shared"] + 0.2}
+    th0_j = {k: jnp.asarray(to_np(v)) for k, v in th0_t.items()}
+    modes, neg_h, after_a = _jax_fits_per_chain(monkeypatch, gibbs_j.update_glm_laplace_shared, pop_j, chains,
+                                                d_j, th0_j, ("bias", "gain"))
+    assert [m.shape for m in modes] == [(3, 3, 2), (3, 3)] and [h.shape for h in neg_h] == [(3, 3, 2, 2), (3, 3, 3)]
+    batched = mcmc_t.stack_states(chains)
+    fit_a, _ = gibbs_t.glm_laplace_fit_shared(pop_t, batched, d_t, th0_t)
+    _, fit_b = gibbs_t.glm_laplace_fit_shared(pop_t, {**batched, **after_a}, d_t, th0_t)
+    assert fit_a[0].shape == (3, 3, 2) and fit_b[0].shape == (3, 1, 3) and fit_b[1].shape == (3, 1, 3, 3)
+    for fit, mode, nh in ((fit_a, modes[0], neg_h[0]), (fit_b, modes[1], neg_h[1])):
+        for c in range(3):
+            _assert_fit((fit[0][c], fit[1][c]), mode[c], nh[c])
 
 
 def test_whitening_factor_and_whitened_leapfrog_match_jax():

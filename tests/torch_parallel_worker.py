@@ -7,7 +7,8 @@ problem's parameters, spikes and stimulus (float64) under
 ``<problem>/...``; the rank writes what it computed to ``OUT.npz`` as flat
 keys (:func:`flatten`):
 
-- ``chains/<problem>/...``: ``gibbs_sample_chains`` on a 'chains' mesh,
+- ``chains/<problem>/...``: ``gibbs_sample_chains`` on a 'chains' mesh
+  (the sparse, distance and spatiotemporal models),
   4 chains × (10 warmup + 10 kept) sweeps from the problem's parameters
   with jitter 0.05: samples, diagnostics and final states;
 - ``resumed/...``: the sparse problem's run checkpointed every 10 sweeps,
@@ -36,12 +37,15 @@ from theano_pyglm_torch.utils.convert import params_from_numpy  # noqa: E402
 PROBLEMS = {
     "sparse": ("sparse_weighted_model", 2, 200, "none"),
     "distance": ("distance_weighted_model", 4, 200, "basis"),
+    "spatiotemporal": ("spatiotemporal_glm", 2, 200, "spatiotemporal"),
     "vg_sparse": ("sparse_weighted_model", 8, 200, "none"),
     "vg_distance": ("distance_weighted_model", 8, 200, "basis"),
     "vg_shared": ("standard_glm", 8, 200, "shared"),
     "map": ("sparse_weighted_model", 8, 500, "none"),
 }
-CHAIN_PROBLEMS = ("sparse", "distance")
+CHAIN_PROBLEMS = ("sparse", "distance", "spatiotemporal")
+#: the spatiotemporal problem's stimulus dimensions (the template's 25, cut)
+ST_D_STIM = 2
 VG_PROBLEMS = ("vg_sparse", "vg_distance", "vg_shared")
 #: the chains' sampler: seed and depth
 CHAIN_RUN = dict(n_chains=4, n_samples=10, n_warmup=10, chunk_size=5, init_jitter=0.05)
@@ -57,6 +61,8 @@ def spec(name, make=make_model) -> dict:
         spec["bkgd"] = {"type": "none"}
     else:
         spec["bkgd"]["type"] = bkgd
+    if bkgd == "spatiotemporal":
+        spec["bkgd"]["D_stim"] = ST_D_STIM
     return spec
 
 

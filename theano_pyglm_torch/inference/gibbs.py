@@ -39,11 +39,13 @@ Chains: every stage also takes params with a leading chain axis (every leaf
 at once: the adjacency stages treat chains × rows as C·N rows of one batch
 (X_imp and S shared), the glm Laplace block C·N independent neurons, the
 conjugate, discrete and rotation stages the chains as a batch dimension.
-Each random draw is C draws, each from its chain's generator
+The spatiotemporal sub-blocks are C·N neurons with a design each; the
+shared block's sub-block (a) is C·N neurons with a design per chain, and
+its global filter C pooled problems, one a chain. Each random draw is C
+draws, each from its chain's generator
 (:func:`~theano_pyglm_torch.ops.distributions.draw`) in the order of the
 one-chain stage, so C chains updated together equal C one-chain updates
-draw for draw. The spatiotemporal and shared glm blocks are not batched:
-the sweep runs them chain by chain (ROADMAP.md, queue 1).
+draw for draw.
 """
 
 from __future__ import annotations
@@ -534,15 +536,28 @@ def _cholesky_or_nan(M) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], torch.full_like(L, torch.nan).tril(), L)
 
 
+def _shared_design(Phi):
+    """The design of a block whose neurons share it: Φ (T, D), shared by
+    every chain, or Φ[..., 0, :, :] ([C,] T, D) of a design ([C,] 1, T, D),
+    one a chain; None for a per-neuron design ([C,] N, T, D), N > 1."""
+    if Phi.ndim == 2:
+        return Phi
+    return Phi[..., 0, :, :] if Phi.shape[-3] == 1 else None
+
+
 def _design_currents(I0, Phi, theta) -> torch.Tensor:
-    """(T, N) currents I0 + Φ θ_n of a linear block: Φ is (T, D), shared by
-    the neurons, or (N, T, D), one design per neuron (the transpose of the
-    JAX package's (T, N, D): each neuron's design is contiguous, so its
-    products are plain batched matrix products); θ is (N, D). With a shared
-    Φ, θ may be (C, N, D), C chains, giving (C, T, N)."""
-    if Phi.ndim == 3:
-        return I0 + torch.bmm(Phi, theta[:, :, None])[..., 0].T
-    return I0 + Phi @ theta.transpose(-1, -2)
+    """([C,] T, N) currents I0 + Φ θ_n of a linear block of C chains' (or
+    one chain's) neurons, θ ([C,] N, D). The design Φ is (T, D), shared by
+    every neuron; ([C,] 1, T, D), shared by the neurons of a chain; or
+    ([C,] N, T, D), one design per neuron (the transpose of the JAX
+    package's (T, N, D): each neuron's design is contiguous, so its
+    products are one batched matrix product over the C·N neurons)."""
+    P = _shared_design(Phi)
+    if P is not None:
+        return I0 + P @ theta.transpose(-1, -2)
+    T, D = Phi.shape[-2:]
+    cur = torch.bmm(Phi.reshape(-1, T, D), theta.reshape(-1, D, 1))  # (C·N, T, 1)
+    return I0 + cur.view(*theta.shape[:-1], T).transpose(-1, -2)
 
 
 def _time_chunks(T: int) -> int:
@@ -551,51 +566,52 @@ def _time_chunks(T: int) -> int:
     return max([c for c in range(1, 65) if T % c == 0 and T // c >= 512] or [1])
 
 
-def _weighted_gram(Phi, w) -> torch.Tensor:
-    """Σ_t w[n, t]·φ[n, t] φ[n, t]ᵀ (N, D, D) of a per-neuron design Φ
-    (N, T, D) with weights w (N, T). Each neuron's sum over T is cut into
-    :func:`_time_chunks` chunks that form a batch of N·C products, summed
-    after. One product per neuron reduces all T in N thread blocks: in the
-    spatiotemporal glm update at N=27, T=60,000 those products took 27.7 of
-    its 37.1 ms of device time on an H100 (``tools/glm_probe.py``)."""
-    N, T, D = Phi.shape
-    C = _time_chunks(T)
-    weighted = (Phi * w[..., None]).view(N * C, T // C, D)
-    return torch.bmm(weighted.transpose(1, 2), Phi.view(N * C, T // C, D)).view(N, C, D, D).sum(1)
+def _sum_over_time(a, b) -> torch.Tensor:
+    """Σ_t a[..., t, :]ᵀ b[..., t, :] ([C,] I, J) of a ([C,] T, I) and b,
+    ([C,] T, J) or (T, J) shared by a's leading axes. T is cut into
+    :func:`_time_chunks` chunks that form one batch of products, summed
+    after. A product that reduces all T runs in one thread block: one a
+    neuron, the spatiotemporal glm update's Hessians at N=27, T=60,000 took
+    27.7 of its 37.1 ms of device time on an H100 (``tools/glm_probe.py``);
+    one a chain, the shared update's products of 4 chains took 1.03 ms each
+    there, against 0.033 ms in chunks."""
+    lead, (T, I), J = a.shape[:-2], a.shape[-2:], b.shape[-1]
+    k = _time_chunks(T)
+    if b.ndim == 2:  # a's leading axes join its columns
+        a = a.reshape(-1, k, T // k, I).permute(1, 2, 0, 3).reshape(k, T // k, -1)
+        return torch.bmm(a.transpose(1, 2), b.view(k, T // k, J)).sum(0).view(*lead, I, J)
+    a, b = a.reshape(-1, T // k, I), b.reshape(-1, T // k, J)
+    return torch.bmm(a.transpose(1, 2), b).view(*lead, k, I, J).sum(-3)
 
 
 def _laplace_fit(S, dt, obs, nlin, I0, Phi, theta0, prior_mu, prior_sd, beta=1.0, n_newton: int = 6):
     """The deterministic part of the Laplace block: ``n_newton`` Newton
     steps from ``theta0`` to each neuron's conditional mode θ*, then the
     Cholesky factor C of −H* (C Cᵀ = −H*, NaN where −H* is not positive
-    definite). The design Φ is (T, D) or (N, T, D) (:func:`_design_currents`);
-    ``prior_mu``/``prior_sd`` broadcast to θ's (N, D). Returns (θ* (N, D),
-    C (N, D, D)); with a shared Φ and I0 of C chains (C, T, N), each with a
-    leading chain axis."""
+    definite). The design Φ is one of :func:`_design_currents`'s;
+    ``prior_mu``/``prior_sd`` broadcast to θ's (N, D). With I0 of C chains
+    (C, T, N) the seed (N, D) is shared by the chains, and θ* (C, N, D) and
+    C (C, N, D, D) carry the chain axis; else (N, D) and (N, D, D)."""
+    theta0 = theta0.expand(*I0.shape[:-2], *theta0.shape[-2:])
     prior_prec = 1.0 / (prior_sd * prior_sd)
     eye_prec = torch.diag_embed(prior_prec.expand_as(theta0))
-    if Phi.ndim == 2:
-        T, D = Phi.shape
-        # φ_t φ_tᵀ of every bin, flattened: with the (chain ×) neuron rows of
-        # d2 as the other operand, all Hessians are one matrix product that
-        # reduces T (a batched product per neuron reduces T in one thread
-        # block each, ~10× slower on an H100 at the flagship)
-        outer = (Phi[:, :, None] * Phi[:, None, :]).reshape(T, D * D)
-
-        def rows(x):  # ([C,] T, N) -> (C·N, T)
-            return x.transpose(-1, -2).reshape(-1, T)
+    T, D = Phi.shape[-2:]
+    P = _shared_design(Phi)
+    if P is not None:  # φ_t φ_tᵀ of every bin, flattened
+        outer = (P[..., :, None] * P[..., None, :]).flatten(-2)  # ([C,] T, D·D)
 
     def grad_negH(theta):
         d1, d2 = _bin_ll_derivs(S, _design_currents(I0, Phi, theta), obs, nlin, dt)
         # curvature clamp (proposal shaping only; the MH ratio is exact)
         d2 = torch.clamp(d2, max=0.0)
-        if Phi.ndim == 3:
-            grad = torch.bmm(d1.T[:, None, :], Phi)[:, 0]
-            negH = -_weighted_gram(Phi, d2.T)
-        else:
-            lead, N = d1.shape[:-2], d1.shape[-1]
-            grad = (rows(d1) @ Phi).view(*lead, N, D)
-            negH = -(rows(d2) @ outer).view(*lead, N, D, D)  # Σ_t d2·φφᵀ per neuron (of each chain)
+        if P is None:  # a design a neuron: C·N rows
+            rows = Phi.reshape(-1, T, D)
+            d1, d2 = (d.transpose(-1, -2).reshape(-1, T, 1) for d in (d1, d2))
+            grad = _sum_over_time(d1, rows).view(theta.shape)
+            negH = -_sum_over_time(rows * d2, rows).view(eye_prec.shape)
+        else:  # Σ_t d·φ and Σ_t d2·φφᵀ of every neuron (of each chain)
+            grad = _sum_over_time(d1, P)
+            negH = -_sum_over_time(d2, outer).unflatten(-1, (D, D))
         return beta * grad - (theta - prior_mu) * prior_prec, beta * negH + eye_prec
 
     theta = theta0
@@ -758,36 +774,40 @@ def update_glm_laplace(
 
 def _st_block_a(pop, params, data, I_coup):
     """Sub-block (a) of the spatiotemporal glm block, θ_n = [bias_n, w_s[n]]
-    given w_t: (Φ (N, T, 1+D) with Φ[n, t] = [1, X_st[t]·w_t[n]], I0 the
-    coupling current, θ_cur (N, 1+D), prior_mu, prior_sd (1+D,))."""
+    given w_t: (Φ ([C,] N, T, 1+D) with Φ[n, t] = [1, X_st[t]·w_t[n]], I0 the
+    coupling current, θ_cur ([C,] N, 1+D), prior_mu, prior_sd (1+D,))."""
     X = data["X_st"]  # (T, D, B)
     T, D, B = X.shape
-    phi = (params["w_stim_t"] @ X.reshape(T * D, B).T).view(-1, T, D)
-    Phi = torch.cat([torch.ones_like(phi[..., :1]), phi], 2)
-    theta = torch.cat([params["bias"][:, None], params["w_stim_s"]], 1)
-    return (Phi, I_coup, theta, *_glm_prior_rows(pop, Phi.shape[2]))
+    w_t = params["w_stim_t"]
+    phi = (w_t @ X.reshape(T * D, B).T).view(*w_t.shape[:-1], T, D)
+    Phi = torch.cat([torch.ones_like(phi[..., :1]), phi], -1)
+    theta = torch.cat([params["bias"][..., None], params["w_stim_s"]], -1)
+    return (Phi, I_coup, theta, *_glm_prior_rows(pop, D + 1))
 
 
 def _st_block_b(pop, params, data, I_coup):
-    """Sub-block (b), θ_n = w_t[n] given [bias, w_s]: (Φ (N, T, B) with
-    Φ[n, t] = X_st[t]ᵀ·w_s[n], I0 = coupling current + bias, θ_cur (N, B),
-    prior_mu, prior_sd (B,))."""
+    """Sub-block (b), θ_n = w_t[n] given [bias, w_s]: (Φ ([C,] N, T, B) with
+    Φ[n, t] = X_st[t]ᵀ·w_s[n], I0 = coupling current + bias, θ_cur
+    ([C,] N, B), prior_mu, prior_sd (B,))."""
     X = data["X_st"]  # (T, D, B)
     T, D, B = X.shape
-    Phi = (params["w_stim_s"] @ X.transpose(0, 1).reshape(D, T * B)).view(-1, T, B)
+    w_s = params["w_stim_s"]
+    Phi = (w_s @ X.transpose(0, 1).reshape(D, T * B)).view(*w_s.shape[:-1], T, B)
     _, _, s_mu, s_sd = _bias_bkgd_scalars(pop)
-    return Phi, I_coup + params["bias"][None, :], params["w_stim_t"], _fills(pop, (B, s_mu)), _fills(pop, (B, s_sd))
+    I0 = I_coup + params["bias"][..., None, :]
+    return Phi, I0, params["w_stim_t"], _fills(pop, (B, s_mu)), _fills(pop, (B, s_sd))
 
 
 def _st_seeds(theta0):
     """The sub-blocks' Newton seeds from the dict ``theta0``."""
-    return torch.cat([theta0["bias"][:, None], theta0["w_stim_s"]], 1), theta0["w_stim_t"]
+    return torch.cat([theta0["bias"][..., None], theta0["w_stim_s"]], -1), theta0["w_stim_t"]
 
 
 def glm_laplace_fit_st(pop, params, data, theta0, beta=1.0, n_newton: int = 6):
     """The deterministic parts of both spatiotemporal sub-blocks at
     ``params`` (each sub-block's design from the other's current values):
-    [(θ*_a (N, 1+D), C_a), (θ*_b (N, B), C_b)]."""
+    [(θ*_a ([C,] N, 1+D), C_a), (θ*_b ([C,] N, B), C_b)], with a chain axis
+    where ``params`` carry one (the seeds ``theta0`` (N, ·) shared)."""
     I_coup = _coupling_current(pop, params, data)
     out = []
     for block, th0 in zip((_st_block_a, _st_block_b), _st_seeds(theta0)):
@@ -807,34 +827,42 @@ def update_glm_laplace_st(
     conditionally linear sub-blocks updated in turn, each an exact MH on its
     conditional (:func:`_laplace_mh_block` with a per-neuron design):
     (a) [bias, w_s] given w_t, then (b) w_t given the new [bias, w_s].
+    Chains are C·N independent neurons of each sub-block.
     ``theta0``: dict with 'bias' (N,), 'w_stim_s' (N, D), 'w_stim_t' (N, B),
     the state-independent Newton seeds. With ``return_accept`` also the
-    mean of the two sub-blocks' accept rates.
+    mean of the two sub-blocks' accept rates (of each chain).
     """
     S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
     I_coup = _coupling_current(pop, params, data)
     seed_a, seed_b = _st_seeds(theta0)
     Phi, I0, theta, mu, sd = _st_block_a(pop, params, data, I_coup)
     theta, acc_a = _laplace_mh_block(generator, S, dt, obs, nlin, I0, Phi, theta, seed_a, mu, sd, beta, n_newton)
-    params = {**params, "bias": theta[:, 0], "w_stim_s": theta[:, 1:]}
+    params = {**params, "bias": theta[..., 0], "w_stim_s": theta[..., 1:]}
     Phi, I0, theta, mu, sd = _st_block_b(pop, params, data, I_coup)
     theta, acc_b = _laplace_mh_block(generator, S, dt, obs, nlin, I0, Phi, theta, seed_b, mu, sd, beta, n_newton)
     params = {**params, "w_stim_t": theta}
     if return_accept:
-        return params, 0.5 * (acc_a.to(theta.dtype).mean() + acc_b.to(theta.dtype).mean())
+        f = theta.dtype
+        return params, 0.5 * (acc_a.to(f).mean(-1) + acc_b.to(f).mean(-1))
     return params
 
 
 def _shared_block_a(pop, params, data, I_coup):
     """Sub-block (a) of the shared-stimulus glm block, per-neuron
-    θ_n = [bias_n, gain_n] given w_shared: (Φ (T, 2) = [1, x_tᵀ w_shared],
-    I0 the coupling current, θ_cur (N, 2), and the prior rows of the bias
-    and of the gain, whose prior is :data:`GAIN_PRIOR_MU`/``_SD``)."""
-    drive = data["X_stim"] @ params["w_stim_shared"]
-    Phi = torch.stack([torch.ones_like(drive), drive], 1)
-    theta = torch.stack([params["bias"], params["gain"]], 1)
+    θ_n = [bias_n, gain_n] given w_shared: (Φ ([C,] 1, T, 2) = [1, x_tᵀ
+    w_shared], shared by a chain's neurons, I0 the coupling current, θ_cur
+    ([C,] N, 2), and the prior rows of the bias and of the gain, whose
+    prior is :data:`GAIN_PRIOR_MU`/``_SD``)."""
+    drive = params["w_stim_shared"] @ data["X_stim"].T  # ([C,] T)
+    Phi = torch.stack([torch.ones_like(drive), drive], -1)[..., None, :, :]
+    theta = torch.stack([params["bias"], params["gain"]], -1)
     b_mu, b_sd = _bias_bkgd_scalars(pop)[:2]
     return Phi, I_coup, theta, _fills(pop, (1, b_mu), (1, GAIN_PRIOR_MU)), _fills(pop, (1, b_sd), (1, GAIN_PRIOR_SD))
+
+
+def _shared_currents(X, I0, gain, w) -> torch.Tensor:
+    """([C,] T, N) currents I0 + gain_n·(x_tᵀ w) of sub-block (b), w ([C,] DB)."""
+    return I0 + (w @ X.T)[..., :, None] * gain[..., None, :]
 
 
 def _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, w0, s_mu, s_sd, beta=1.0, n_newton: int = 6):
@@ -843,39 +871,43 @@ def _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, w0, s_mu, s_sd, beta=1.0, 
     with current I0 + gain_n·(x_tᵀ w). ``n_newton`` pooled Newton steps
     (gradient Σ_tn d1·gain_n x_t, Hessian Σ_tn d2·gain_n² x_t x_tᵀ) from
     ``w0``, then the Cholesky factor of −H*. Returns (w* (1, DB),
-    C (1, DB, DB)), the one-row form of :func:`_laplace_fit`'s."""
+    C (1, DB, DB)), the one-row form of :func:`_laplace_fit`'s. With I0
+    (C, T, N) and gain (C, N) of C chains, C pooled problems, one a chain,
+    from the shared seed: (w* (C, 1, DB), C (C, 1, DB, DB))."""
     prec = 1.0 / (s_sd * s_sd)
     eye = prec * torch.eye(X.shape[1], dtype=X.dtype, device=X.device)
     g2 = gain * gain
 
     def grad_negH(w):
-        d1, d2 = _bin_ll_derivs(S, I0 + (X @ w)[:, None] * gain, obs, nlin, dt)
+        d1, d2 = _bin_ll_derivs(S, _shared_currents(X, I0, gain, w), obs, nlin, dt)
         d2 = torch.clamp(d2, max=0.0)
-        g = beta * (X.T @ (d1 @ gain)) - (w - s_mu) * prec
-        return g, beta * (X.T @ (X * (-(d2 @ g2))[:, None])) + eye
+        g = beta * _sum_over_time(d1 @ gain[..., None], X)[..., 0, :] - (w - s_mu) * prec
+        return g, beta * _sum_over_time(X * -(d2 @ g2[..., None]), X) + eye
 
     w = w0
     for _ in range(n_newton):
         g, nH = grad_negH(w)
-        w = w + torch.linalg.solve_ex(nH, g[:, None])[0][:, 0]
+        w = w + torch.linalg.solve_ex(nH, g[..., None])[0][..., 0]
     _, nH = grad_negH(w)
-    return w[None], _cholesky_or_nan(nH[None])
+    return w[..., None, :], _cholesky_or_nan(nH[..., None, :, :])
 
 
 def _shared_filter_inputs(pop, params, data, I_coup):
     """(X_stim, I0 = coupling current + bias, gain, s_mu, s_sd) of
     sub-block (b) at ``params``."""
     _, _, s_mu, s_sd = _bias_bkgd_scalars(pop)
-    return data["X_stim"], I_coup + params["bias"][None, :], params["gain"], s_mu, s_sd
+    return data["X_stim"], I_coup + params["bias"][..., None, :], params["gain"], s_mu, s_sd
 
 
 def glm_laplace_fit_shared(pop, params, data, theta0, beta=1.0, n_newton: int = 6):
     """The deterministic parts of both shared-stimulus sub-blocks at
-    ``params``: [(θ*_a (N, 2) of [bias, gain], C_a), (w* (1, DB), C_b)]."""
+    ``params``: [(θ*_a (N, 2) of [bias, gain], C_a), (w* (1, DB), C_b)];
+    with a chain axis where ``params`` carry one (the seeds ``theta0``
+    shared), each result gains it first."""
     S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
     I_coup = _coupling_current(pop, params, data)
     Phi, I0, _, mu, sd = _shared_block_a(pop, params, data, I_coup)
-    seed_a = torch.stack([theta0["bias"], theta0["gain"]], 1)
+    seed_a = torch.stack([theta0["bias"], theta0["gain"]], -1)
     fit_a = _laplace_fit(S, dt, obs, nlin, I0, Phi, seed_a, mu, sd, beta, n_newton)
     X, I0, gain, s_mu, s_sd = _shared_filter_inputs(pop, params, data, I_coup)
     return [fit_a, _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, theta0["w_stim_shared"], s_mu, s_sd,
@@ -894,14 +926,16 @@ def update_glm_laplace_shared(
     and (b) the global w_shared given (bias, gain): one pooled Newton
     (:func:`_shared_filter_fit`) and a single MH accept, with the same
     defensive prior mixture and escape hatches as the per-neuron blocks.
-    With ``return_accept`` also the mean of the two sub-blocks' accept rates.
+    Chains are C·N neurons in (a), each chain's design its own, and C
+    pooled problems in (b). With ``return_accept`` also the mean of the two
+    sub-blocks' accept rates (of each chain).
     """
     S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
     I_coup = _coupling_current(pop, params, data)
     Phi, I0, theta, mu, sd = _shared_block_a(pop, params, data, I_coup)
-    seed_a = torch.stack([theta0["bias"], theta0["gain"]], 1)
+    seed_a = torch.stack([theta0["bias"], theta0["gain"]], -1)
     theta, acc_a = _laplace_mh_block(generator, S, dt, obs, nlin, I0, Phi, theta, seed_a, mu, sd, beta, n_newton)
-    params = {**params, "bias": theta[:, 0], "gain": theta[:, 1]}
+    params = {**params, "bias": theta[..., 0], "gain": theta[..., 1]}
 
     w_new, acc_b = _shared_filter_mh(
         generator, pop, data, *_shared_filter_inputs(pop, params, data, I_coup), params["w_stim_shared"],
@@ -910,7 +944,7 @@ def update_glm_laplace_shared(
     params = {**params, "w_stim_shared": w_new}
     if return_accept:
         f = w_new.dtype
-        return params, 0.5 * (acc_a.to(f).mean() + acc_b.to(f))
+        return params, 0.5 * (acc_a.to(f).mean(-1) + acc_b.to(f))
     return params
 
 
@@ -918,20 +952,21 @@ def _shared_filter_mh(generator, pop, data, X, I0, gain, s_mu, s_sd, w_cur, w0, 
     """Sub-block (b) of the shared glm block: :func:`_shared_filter_fit`
     from the seed ``w0``, then one :func:`_independence_mh` accept of the
     global filter against its exact conditional. Returns (w_new (DB,),
-    accept (0-d bool))."""
+    accept (0-d bool)); with C chains' I0, gain and w_cur and a list of C
+    generators, (w_new (C, DB), accept (C,))."""
     S, dt, obs, nlin = data["S"], pop.dt, pop.observation, pop.nlin
     w_star, C = _shared_filter_fit(S, dt, obs, nlin, X, I0, gain, w0, s_mu, s_sd, beta, n_newton)
 
-    def log_target(w):  # (1, DB) -> (1,)
-        ll = obs.log_likelihood(S, I0 + (X @ w[0])[:, None] * gain, nlin, dt).sum()
+    def log_target(w):  # ([C,] 1, DB) -> ([C,] 1)
+        ll = obs.log_likelihood(S, _shared_currents(X, I0, gain, w[..., 0, :]), nlin, dt).sum((-2, -1))
         zp = (w - s_mu) / s_sd
-        return beta * ll - 0.5 * (zp * zp).sum(1)
+        return beta * ll[..., None] - 0.5 * (zp * zp).sum(-1)
 
-    DB = w_cur.shape[0]
+    DB = w_cur.shape[-1]
     w_new, accept = _independence_mh(
-        generator, log_target, w_cur[None], w_star, C, _fills(pop, (DB, s_mu)), _fills(pop, (DB, s_sd))
+        generator, log_target, w_cur[..., None, :], w_star, C, _fills(pop, (DB, s_mu)), _fills(pop, (DB, s_sd))
     )
-    return w_new[0], accept[0]
+    return w_new[..., 0, :], accept[..., 0]
 
 
 # ---------------------------------------------------------------------------

@@ -310,12 +310,7 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
                 new_state[name] = state[name]
                 continue
             if name == "glm" and glm_laplace:
-                if bk_type in _GLM_PER_CHAIN and not isinstance(generator, torch.Generator):
-                    params, acc = _chain_by_chain(glm_laplace_fn, generator, pop, params, data, theta0, beta)
-                else:
-                    params, acc = glm_laplace_fn(
-                        generator, pop, params, data, theta0, beta=beta, return_accept=True
-                    )
+                params, acc = glm_laplace_fn(generator, pop, params, data, theta0, beta=beta, return_accept=True)
                 opt, _ = _partition(params, keys)
                 new_state["glm"] = _fresh_block_state(state["glm"], opt, torch.zeros_like(acc))._replace(
                     accept_rate=acc)
@@ -368,17 +363,6 @@ _GLM_LAPLACE = {
     "spatiotemporal": update_glm_laplace_st,
     "shared": update_glm_laplace_shared,
 }
-#: the variants whose glm update is not batched over chains: the batched
-#: sweep runs it chain by chain (ROADMAP.md, queue 1)
-_GLM_PER_CHAIN = ("spatiotemporal", "shared")
-
-
-def _chain_by_chain(update, generators, pop, params, data, theta0, beta):
-    """A one-chain glm update on each chain of batched params in turn, with
-    its chain's generator; (params, accept rates), stacked."""
-    outs = [update(g, pop, chain_state(params, c), data, theta0, beta=beta, return_accept=True)
-            for c, g in enumerate(generators)]
-    return stack_states([p for p, _ in outs]), torch.stack([a for _, a in outs])
 
 
 def whitening_factor(X) -> torch.Tensor:

@@ -9,9 +9,7 @@ first, every stage updates all chains at once, and the likelihood of all
 chains is one launch of the chain-batched kernel K3 (ops/kernels.py; one
 per group of chains where K3 does not take all of them). Each
 chain's generator makes the draws that chain would make alone, so the
-chains equal independent one-chain runs draw for draw. The spatiotemporal
-and shared glm blocks run chain by chain inside the sweep (ROADMAP.md,
-queue 1).
+chains equal independent one-chain runs draw for draw.
 
 Chains over several GPUs (``mesh``, a 'chains' mesh of
 :mod:`theano_pyglm_torch.parallel.mesh`): each rank runs its contiguous
