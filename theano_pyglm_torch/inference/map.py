@@ -23,6 +23,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from theano_pyglm_torch.utils.metrics import timer
+
 __all__ = [
     "CONTINUOUS_KEYS",
     "split_params",
@@ -50,12 +52,16 @@ def split_params(params: dict, keys: Sequence[str] = CONTINUOUS_KEYS):
 
 def value_and_grad(fn: Callable, params: dict) -> tuple:
     """(value, {leaf: gradient}) of the scalar ``fn(params)`` over the
-    floating leaves of ``params``; a leaf ``fn`` does not reach gets zeros."""
-    x = {k: v.detach().requires_grad_(True) for k, v in params.items()
-         if isinstance(v, torch.Tensor) and v.is_floating_point()}
-    val = fn({**params, **x})
-    grads = torch.autograd.grad(val, list(x.values()), allow_unused=True)
-    return val.detach(), {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(x.items(), grads)}
+    floating leaves of ``params``; a leaf ``fn`` does not reach gets zeros.
+    In a profiler trace the call is the span ``value_and_grad`` and its
+    backward pass ``value_and_grad.backward``."""
+    with timer("value_and_grad"):
+        x = {k: v.detach().requires_grad_(True) for k, v in params.items()
+             if isinstance(v, torch.Tensor) and v.is_floating_point()}
+        val = fn({**params, **x})
+        with timer("value_and_grad.backward"):
+            grads = torch.autograd.grad(val, list(x.values()), allow_unused=True)
+        return val.detach(), {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(x.items(), grads)}
 
 
 def lbfgs_minimize(fun: Callable, x0: dict, max_iter: int = 500, tol: float = 1e-6, window: int = 1):

@@ -56,6 +56,7 @@ from theano_pyglm_torch.inference.hmc import (
     reset_variance,
 )
 from theano_pyglm_torch.utils.checkpoints import latest_step, restore_checkpoint, save_checkpoint
+from theano_pyglm_torch.utils.metrics import timer
 
 __all__ = [
     "SWEEP_STAGES",
@@ -242,6 +243,8 @@ def stack_states(states) -> dict:
 
 #: update groups accepted by ``make_sweep(stages=...)``, in sweep order
 SWEEP_STAGES = ("glm", "imp", "latent", "hypers", "adjacency", "discrete", "rotation")
+#: the span of each HMC stage in a profiler trace of the sweep
+_STAGE_SPANS = {name: "sweep." + name for name, _ in _HMC_BLOCKS}
 
 
 def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
@@ -268,6 +271,9 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
     their state through. A strict subset is not a valid posterior kernel
     and needs ``diagnostic=True`` (per-stage timing and A/B diagnostics
     only); without it ``make_sweep`` raises.
+
+    In a profiler trace each call is the span ``sweep``, and each stage
+    that runs in it the span ``sweep.<stage>`` (``utils.metrics.timer``).
     """
     if stages is not None:
         unknown = set(stages) - set(SWEEP_STAGES)
@@ -301,6 +307,10 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
     R = whitening_factor(data["X_stim"]) if "X_stim" in data and not glm_laplace else None
 
     def sweep(generator, state, adapt: bool, beta: float = 1.0):
+        with timer("sweep"):
+            return _stages(generator, state, adapt, beta)
+
+    def _stages(generator, state, adapt, beta):
         params = state["params"]
         new_state = {}
         for name, keys in _HMC_BLOCKS:
@@ -309,47 +319,53 @@ def make_sweep(pop, data, n_leapfrog: int = 10, target_accept: float = 0.9,
             if not _on(name):
                 new_state[name] = state[name]
                 continue
-            if name == "glm" and glm_laplace:
-                params, acc = glm_laplace_fn(generator, pop, params, data, theta0, beta=beta, return_accept=True)
-                opt, _ = _partition(params, keys)
-                new_state["glm"] = _fresh_block_state(state["glm"], opt, torch.zeros_like(acc))._replace(
-                    accept_rate=acc)
-                continue
-            opt, frozen = _partition(params, keys)
-            if name == "latent":
-                # the likelihood does not touch the latents; the graph prior does
-                def logp(o, frozen=frozen):
-                    return pop.graph.log_prior({**frozen, **o})
-            elif name == "glm":
-                opt, logp = _glm_hmc_target(pop, params, data, R, beta)
-            else:  # 'imp': the full likelihood, through the fused kernels K1/K2
-                def logp(o, frozen=frozen):
-                    p = {**frozen, **o}
-                    return beta * pop.log_likelihood(p, data) + pop.impulse.log_prior(p)
-            with torch.no_grad():
-                h = _fresh_block_state(state[name], opt, logp(opt))
-            h = hmc_adaptive_step(
-                generator, logp, h, n_steps=n_leapfrog, target_accept=target_accept, adapt=adapt
-            )
-            out = _whitened(h.position, R, inverse=True) if name == "glm" else h.position
-            params = {**frozen, **out}
-            new_state[name] = h
+            with timer(_STAGE_SPANS[name]):
+                if name == "glm" and glm_laplace:
+                    params, acc = glm_laplace_fn(generator, pop, params, data, theta0, beta=beta,
+                                                 return_accept=True)
+                    opt, _ = _partition(params, keys)
+                    new_state["glm"] = _fresh_block_state(state["glm"], opt, torch.zeros_like(acc))._replace(
+                        accept_rate=acc)
+                    continue
+                opt, frozen = _partition(params, keys)
+                if name == "latent":
+                    # the likelihood does not touch the latents; the graph prior does
+                    def logp(o, frozen=frozen):
+                        return pop.graph.log_prior({**frozen, **o})
+                elif name == "glm":
+                    opt, logp = _glm_hmc_target(pop, params, data, R, beta)
+                else:  # 'imp': the full likelihood, through the fused kernels K1/K2
+                    def logp(o, frozen=frozen):
+                        p = {**frozen, **o}
+                        return beta * pop.log_likelihood(p, data) + pop.impulse.log_prior(p)
+                with torch.no_grad():
+                    h = _fresh_block_state(state[name], opt, logp(opt))
+                h = hmc_adaptive_step(
+                    generator, logp, h, n_steps=n_leapfrog, target_accept=target_accept, adapt=adapt
+                )
+                out = _whitened(h.position, R, inverse=True) if name == "glm" else h.position
+                params = {**frozen, **out}
+                new_state[name] = h
 
         if _on("hypers"):
-            params = update_weight_hypers(generator, pop, params)
-            params = refresh_disconnected_weights(generator, pop, params)
+            with timer("sweep.hypers"):
+                params = update_weight_hypers(generator, pop, params)
+                params = refresh_disconnected_weights(generator, pop, params)
         if _on("adjacency"):
-            params, new_state["accept_adjacency"] = update_adjacency_collapsed(
-                generator, pop, params, data, return_accept=True, row_batch=row_batch, beta=beta
-            )
+            with timer("sweep.adjacency"):
+                params, new_state["accept_adjacency"] = update_adjacency_collapsed(
+                    generator, pop, params, data, return_accept=True, row_batch=row_batch, beta=beta
+                )
         elif "accept_adjacency" in state:
             new_state["accept_adjacency"] = state["accept_adjacency"]
         if _on("discrete"):
-            params = update_sbm_types_collapsed(generator, pop, params)
-            params = update_sbm_hypers(generator, pop, params)
-            params = update_er_rho(generator, pop, params)
+            with timer("sweep.discrete"):
+                params = update_sbm_types_collapsed(generator, pop, params)
+                params = update_sbm_hypers(generator, pop, params)
+                params = update_er_rho(generator, pop, params)
         if _on("rotation"):
-            params = update_latent_rotation(generator, pop, params)
+            with timer("sweep.rotation"):
+                params = update_latent_rotation(generator, pop, params)
         new_state["params"] = params
         return new_state
 

@@ -67,6 +67,7 @@ from theano_pyglm_torch.ops.basis import create_basis
 from theano_pyglm_torch.ops.convolve import convolve_with_basis, upsample_stim
 from theano_pyglm_torch.ops.kernels import fused_poisson_ll
 from theano_pyglm_torch.utils.dtypes import default_float
+from theano_pyglm_torch.utils.metrics import timer
 
 __all__ = ["Population"]
 
@@ -267,7 +268,8 @@ class Population:
         rows of S and of the time-indexed designs, and the rest of ``data``
         as it is. Without X_imp the block's design is rebuilt from spike rows
         [t0 − L, t1) (zeros before t = 0): the exact history of a strictly
-        causal L-lag convolution, cut to the block's rows."""
+        causal L-lag convolution, cut to the block's rows; in a profiler
+        trace the rebuild is the span ``loglik.design``."""
         S = data["S"]
         T, N = S.shape
         L, t1 = self.L_imp, min(t0 + self.time_chunk, T)
@@ -277,9 +279,10 @@ class Population:
             if k in data:
                 d[k] = data[k][t0:t1]
         if "X_imp" not in data:
-            lo = max(t0 - L, 0)
-            halo = torch.cat([S.new_zeros((L - (t0 - lo), N)), S[lo:t1]])
-            d["X_imp"] = self._design(convolve_with_basis(halo, self._tensor(self.basis_imp))[L:])
+            with timer("loglik.design"):
+                lo = max(t0 - L, 0)
+                halo = torch.cat([S.new_zeros((L - (t0 - lo), N)), S[lo:t1]])
+                d["X_imp"] = self._design(convolve_with_basis(halo, self._tensor(self.basis_imp))[L:])
         return d
 
     def log_likelihood_per_neuron(self, params, data) -> torch.Tensor:
