@@ -40,7 +40,8 @@ Phases, each of which raises on a mismatch or a non-finite value:
    birth-death, rotation), one batched sweep over the 4 chains, then R-hat,
    ESS and link-prediction AUC. The kernels' launch counts over the run must
    equal what the batched sweep implies: every likelihood evaluation one K3
-   launch for all chains, none of K1/K2; every leaf finite, A binary, accept
+   launch for all chains, none of K1/K2, and one row-scan launch
+   (csrc/adjacency_rows.cu) a batched adjacency stage; every leaf finite, A binary, accept
    rates in range; psi, the log-joint and the glm Laplace mode of chain 0's
    final state on the card in float32 against the CPU in float64; one sweep
    of the 4 chains batched against the same sweep at C = 1 on each chain in
@@ -49,7 +50,17 @@ Phases, each of which raises on a mismatch or a non-finite value:
    it than any other chain's (config 4 likewise). Printed: the 4-chain batched sweep and each stage alone at
    C = 4, and beside them the same code at C = 1 on the 4 chains in turn:
    ms per sweep, synchronizing calls, device activities, busy time and idle
-   share.
+   share. Then the row scan at 4 and 16 chains on phase 3's data: against
+   its plain version (A and accept flags equal, W within 1e-5, up to each
+   row's first decision within float32's rounding bound of its sums), bit
+   for bit repeated, one launch a call, and its device time warm and cold
+   beside the plain version's, its bound (every operand read once, the
+   current written once) and the traffic of its design (ψ_m, the previous
+   entry's ψ, S and the current read, and the current written, for every
+   entry). In every path the row-scan launches must be those the sweep's
+   adjacency stage calls imply: one a call and row batch where the stage
+   takes the exp-Poisson row scan on the card, and none of the torch entry
+   loop's.
 6. Acceptance configs 1-4 (theano_pyglm_torch/scripts/acceptance.py) at
    their full N and T, depth cut. For each: K1/K2 against the plain version
    at the config's shape, as in phase 2, and K3 at its sampler's chains
@@ -111,8 +122,9 @@ Phases, each of which raises on a mismatch or a non-finite value:
    streamed value+grad evaluation adds below the 1.2 GB design. 8d: the
    resident log-likelihood at the MAP point equal to the streamed one
    (1e-5 rel.), then 1 chain x (40 + 10) sweeps with row_batch=4:
-   launches as the sweep implies, leaves finite, A binary, ms per sweep,
-   and one sweep of each stage alone.
+   launches as the sweep implies (25 row-scan launches an adjacency stage,
+   the 24 replayed row batches counted), leaves finite, A binary, ms per
+   sweep, and one sweep of each stage alone.
    8e: the card's float32 streamed log-joint and gradient at the truth
    against the CPU's float64 (1e-5 rel., 1e-4 rel. L2), over the full T if
    the CPU's projected time is under 60 s, else over the first two blocks.
@@ -140,7 +152,9 @@ Phases, each of which raises on a mismatch or a non-finite value:
    init, MAP (K4-vg launches equal to the L-BFGS evaluations), then
    rgc_flagship.run with 4 chains x (20 + 10) batched sweeps (K4-chains
    launches as the sweep implies, none of K1-K3 or of K4 without a chain
-   axis), leaves finite, A binary; the card's bf16 log-joints at the final
+   axis; one launch of the row scan's bf16 instance a stage), leaves
+   finite, A binary; the row scan's bf16 instance against its plain version
+   on that ψ at 4 chains, as in phase 5; the card's bf16 log-joints at the final
    state against the CPU's bf16 (1e-5 rel., with and without a chain
    axis); bf16 against float32 at the float32 MAP point (log-joint,
    gradient and coupling current, reported); the bf16 batched sweep's ms
@@ -185,7 +199,8 @@ K4-chains launch, at any C.
 
 The line before the last two is one JSON object describing the kernels
 K1, K2, K3-fwd and K3-vg (times and errors from phase 2), the four K4
-(from 10a) and K1's and K2's wide-U instance (8a at T=600,000), with
+(from 10a), K1's and K2's wide-U instance (8a at T=600,000) and the row
+scan's two instances (phases 5 and 10b), with
 launches summed over the paths of phases 3, 5, 6, 7, 8, 9, 10 and 11
 (K1's and K2's without their wide-U instance's, which phase 8's paths
 make), each of which must have launched at least once; the next the
@@ -210,7 +225,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from theano_pyglm_torch import Population, make_model  # noqa: E402
-from theano_pyglm_torch.inference import ars, gibbs  # noqa: E402
+from theano_pyglm_torch.inference import ars, gibbs, mcmc, row_scan  # noqa: E402
 from theano_pyglm_torch.inference.hmc import hmc_adaptive_step, hmc_init  # noqa: E402
 from theano_pyglm_torch.inference.map import (  # noqa: E402
     cross_validate_lambda, map_fit, sparse_map_fit, split_params, value_and_grad)
@@ -221,8 +236,8 @@ from theano_pyglm_torch.inference.predictive import predictive_log_likelihood  #
 from theano_pyglm_torch.inference.smart_init import smart_initialize  # noqa: E402
 from theano_pyglm_torch.ops import kernels  # noqa: E402
 from theano_pyglm_torch.ops.cuda_loader import (  # noqa: E402
-    SOURCE, SOURCE_BF16, SOURCE_CHAINS, SOURCE_WIDE, build_all, load_fused_ll, load_fused_ll_bf16,
-    load_fused_ll_chains, load_fused_ll_wide)
+    SOURCE, SOURCE_BF16, SOURCE_CHAINS, SOURCE_ROWS, SOURCE_WIDE, build_all, load_adjacency_rows, load_fused_ll,
+    load_fused_ll_bf16, load_fused_ll_chains, load_fused_ll_wide)
 from theano_pyglm_torch.parallel import gibbs_sample_chains  # noqa: E402
 from theano_pyglm_torch.scripts import acceptance, rgc_flagship  # noqa: E402
 from theano_pyglm_torch.utils.diagnostics import adjusted_rand_index  # noqa: E402
@@ -325,8 +340,48 @@ KERNELS = F32_KERNELS + BF16_KERNELS  # kernels.LAUNCHES' keys
 assert set(KERNELS) == set(kernels.LAUNCHES)
 
 
+# Row-scan launches since the last zero_launches() that the adjacency
+# stage's calls imply (spy_adjacency_stage), and those of the paths before.
+ROW_SCANS_IMPLIED = dict.fromkeys(kernels.ROW_SCAN_LAUNCHES, 0)
+ROW_SCANS_ON_PATHS = dict.fromkeys(kernels.ROW_SCAN_LAUNCHES, 0)
+
+
+def spy_adjacency_stage() -> None:
+    """Have every call of the sweep's adjacency stage add the row-scan
+    launches it implies to ROW_SCANS_IMPLIED: one a row batch where the
+    stage takes the exp-Poisson row scan on the card (A sampled, weights),
+    none otherwise."""
+    stage = mcmc.update_adjacency_collapsed
+
+    def spied(generator, pop, params, data, *args, row_batch=None, **kw):
+        X = data.get("X_imp")
+        if (data["S"].is_cuda and X is not None and not pop.graph.fixed_A and pop.weights.has_W
+                and pop.nlin.name == "exp" and pop.observation.name == "poisson"):
+            rows = params["A"][..., 0].numel()  # C·N
+            key = "row_scan_bf16" if X.dtype == torch.bfloat16 else "row_scan"
+            ROW_SCANS_IMPLIED[key] += -(-rows // int(row_batch or rows))
+        return stage(generator, pop, params, data, *args, row_batch=row_batch, **kw)
+
+    mcmc.update_adjacency_collapsed = spied
+
+
+def require_row_scans(what: str) -> None:
+    """The row-scan launches since the last zero_launches() are those the
+    adjacency stage's calls imply: one a call and row batch, so on the card
+    the exp-Poisson stage never ran the torch entry loop."""
+    require(kernels.ROW_SCAN_LAUNCHES == ROW_SCANS_IMPLIED,
+            f"{what}: row-scan launches {kernels.ROW_SCAN_LAUNCHES}, the adjacency stage implies {ROW_SCANS_IMPLIED}")
+
+
 def zero_launches() -> None:
-    """Every kernel's launch count to 0, just before a path is driven."""
+    """Every kernel's launch count to 0, just before a path is driven; the
+    row scans of the path before are checked and added to
+    ROW_SCANS_ON_PATHS."""
+    require_row_scans("the path before")
+    for k in ROW_SCANS_ON_PATHS:
+        ROW_SCANS_ON_PATHS[k] += kernels.ROW_SCAN_LAUNCHES[k]
+    kernels.ROW_SCAN_LAUNCHES.update(dict.fromkeys(ROW_SCANS_ON_PATHS, 0))
+    ROW_SCANS_IMPLIED.update(dict.fromkeys(ROW_SCANS_ON_PATHS, 0))
     kernels.LAUNCHES.update({k: 0 for k in KERNELS})
     kernels.WIDE_LAUNCHES.update({k: 0 for k in kernels.WIDE_LAUNCHES})
 
@@ -352,6 +407,7 @@ def setup() -> str:
     load_fused_ll_wide()
     load_fused_ll_bf16()
     load_fused_ll_chains()
+    load_adjacency_rows()
     log(f"built {', '.join(os.path.relpath(p, REPO) for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for _, build_log in built.values():
@@ -777,7 +833,9 @@ def _require_sweep_launches(what, launches, ll_evals, chains, sweeps, bf16=False
     launch none (K3-vg = sweeps·2L, K3-fwd = sweeps·2, whatever C is); one
     chain is K1/K2's (K2 = sweeps·2L, K1 = sweeps·2). A bf16 design
     (``bf16``): every evaluation one K4-chains launch, one chain included
-    (the batched sweep carries a chain axis), and no other kernel."""
+    (the batched sweep carries a chain axis), and no other kernel. The row
+    scans since the last zero_launches() as the adjacency stage's calls
+    imply (require_row_scans)."""
     per = {"fwd": sweeps * 2, "vg": sweeps * 2 * LEAPFROG_STEPS}
     if bf16:
         want = launches_of(fwd_chains_bf16=per["fwd"], vg_chains_bf16=per["vg"])
@@ -788,6 +846,7 @@ def _require_sweep_launches(what, launches, ll_evals, chains, sweeps, bf16=False
     require(launches == want, f"{what}: kernel launches {launches} != {want} implied by the sweep")
     require(ll_evals == {"grad": per["vg"], "value": per["fwd"]},
             f"{what}: likelihood evaluations {ll_evals}: some took the plain path on the card")
+    require_row_scans(what)
 
 
 def _require_chains(what, states, samples) -> None:
@@ -818,7 +877,7 @@ def gibbs_phase(sl, card: str) -> dict:
     """The flagship's sampler through rgc_flagship.run; returns the kernels'
     launches over the run."""
     pop, data, true, fit = sl["pop"], sl["data"], sl["true"], sl["params"]
-    launches0, ll0 = dict(kernels.LAUNCHES), dict(pop.ll_evals)
+    launches0, ll0, rows0 = dict(kernels.LAUNCHES), dict(pop.ll_evals), dict(kernels.ROW_SCAN_LAUNCHES)
     t0 = time.perf_counter()
     samples, diag, states, summary = rgc_flagship.run(
         pop, data, true, fit, seed=SEED, n_chains=GIBBS_CHAINS, n_iters=GIBBS_SAMPLES,
@@ -829,9 +888,13 @@ def gibbs_phase(sl, card: str) -> dict:
     t_run = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] - launches0[k] for k in launches0}
     ll_evals = {k: pop.ll_evals[k] - ll0[k] for k in ll0}
+    rows = {k: kernels.ROW_SCAN_LAUNCHES[k] - rows0[k] for k in rows0}
+    sweeps = GIBBS_WARMUP + GIBBS_SAMPLES
+    require(rows == {"row_scan": sweeps, "row_scan_bf16": 0},
+            f"Gibbs: row-scan launches {rows}, not one a batched adjacency stage ({sweeps})")
     log(f"Gibbs: {GIBBS_CHAINS} chains x ({GIBBS_WARMUP} warmup + {GIBBS_SAMPLES} samples) in {t_run:.2f} s "
         f"({1e3 * t_run / (GIBBS_WARMUP + GIBBS_SAMPLES):.1f} ms per 4-chain sweep, sampler and summary) "
-        f"[{card}]; launches {launches}; likelihood evaluations {ll_evals}")
+        f"[{card}]; launches {launches}; likelihood evaluations {ll_evals}; row-scan launches {rows}")
     _require_sweep_launches("Gibbs", launches, ll_evals, GIBBS_CHAINS, GIBBS_WARMUP + GIBBS_SAMPLES)
     _require_chains("Gibbs", states, samples)
     _require_accept_rates("Gibbs", diag)
@@ -862,6 +925,116 @@ def gibbs_phase(sl, card: str) -> dict:
     sl["phase5"] = {"samples": samples, "diag": diag, "states": states, "launches": launches, "t_run": t_run}
     time_sweeps(pop, data, fit, stack_states(states), card, check_modes=True)
     return launches
+
+
+def _row_scan_operands(dev, chains, pop=None, data=None, seed=SEED):
+    """The row-scan kernel's operands as one adjacency stage of ``chains``
+    chains passes them (params drawn from the prior; without ``pop`` and
+    ``data`` a flagship-shaped problem with Poisson spikes at ~20 Hz)."""
+    if pop is None:
+        pop = Population(make_model("distance_weighted_model", N, bias={"mu": 3.0, "sigma": 0.4}), device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        S = torch.poisson(torch.full((T, N), 0.02, device=dev), generator=g)
+        data = pop.prepare_data(S, stim=np.random.RandomState(seed).randn(T, 1).astype(np.float32))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    samples = [pop.sample(g) for _ in range(chains)]
+    params = {k: torch.stack([p[k] for p in samples]) for k in samples[0]}
+    gens = [torch.Generator(device=dev).manual_seed(seed + 10 + c) for c in range(chains)]
+    calls, scan = [], row_scan.adjacency_row_scan
+
+    def recorded(psi, cur, S_n, ent, offs=None, blk=0, **kw):
+        calls.append(((psi, cur.clone(), S_n, ent, offs, blk), kw))
+        return scan(psi, cur, S_n, ent, offs, blk, **kw)
+
+    before = dict(kernels.ROW_SCAN_LAUNCHES)
+    row_scan.adjacency_row_scan = recorded
+    try:
+        gibbs.update_adjacency_collapsed(gens, pop, params, data)
+    finally:
+        row_scan.adjacency_row_scan = scan
+    require(len(calls) == 1, f"the stage made {len(calls)} row-scan calls, not one")
+    key = "row_scan_bf16" if calls[0][0][0].dtype == torch.bfloat16 else "row_scan"
+    made = {k: kernels.ROW_SCAN_LAUNCHES[k] - before[k] for k in before}
+    require(made == {**dict.fromkeys(before, 0), key: 1}, f"the stage made row-scan launches {made}, not one")
+    return calls[0]
+
+
+def row_scan_bound(psi, offs, blk) -> tuple:
+    """(floor ms, design ms) of the row scan over HBM_BYTES_PER_S. The
+    floor: every operand read once (ψ, S, the current, the entries and the
+    offsets) and the current and the (3, R, M) result written once. The
+    design: the bytes the kernel moves if nothing is found in L2 — per row,
+    the subsample's S and current read once; per entry ψ_m's row, S and the
+    current read, ψ_m's subsample gathered, and, from the second entry, the
+    previous entry's ψ read and (but for the last) the current written."""
+    M, R, T_ = psi.shape
+    es = psi.element_size()
+    T_sub = T_ if offs is None else offs.shape[1] * blk
+    n_offs = 0 if offs is None else offs.numel()
+    floor = psi.numel() * es + 3 * 4 * R * T_ + 4 * R * 9 * M + 8 * n_offs + 4 * 3 * R * M
+    per_row = (8 * T_sub + M * T_ * (es + 8) + M * T_sub * es + (M - 1) * T_ * es + max(M - 2, 0) * 4 * T_
+               + 4 * 9 * M + 4 * 3 * M)
+    design = R * per_row + 8 * n_offs
+    return 1e3 * floor / HBM_BYTES_PER_S, 1e3 * design / HBM_BYTES_PER_S
+
+
+def check_row_scan(dev, card, pop=None, data=None, chains=(4, 16)) -> dict:
+    """The adjacency stage's row scan at the flagship shape, at each of
+    ``chains`` (ψ float32, or bf16 for a bf16 design): the stage's own call
+    one launch, the kernel against its plain version on the same operands
+    (A, accept flags equal and W within 1e-5 of max(|W|, σ) up to each row's
+    first decision within float32's rounding bound of its sums), one launch
+    a call, bit-for-bit repeats; then the kernel's median device time warm
+    and with the L2 flushed, the plain version's, its bound and its design's
+    traffic. Returns the statistics of the last of ``chains``. The launch
+    counts are as they were before: the check's launches count on no path."""
+    stats, saved = {}, dict(kernels.ROW_SCAN_LAUNCHES)
+    flush = torch.empty(40 * 2**20, dtype=torch.float32, device=dev)  # 160 MB
+    for C in chains:
+        (psi, cur, S_n, ent, offs, blk), kw = _row_scan_operands(dev, C, pop, data)
+        key = "row_scan_bf16" if psi.dtype == torch.bfloat16 else "row_scan"
+        before = dict(kernels.ROW_SCAN_LAUNCHES)
+        got = [row_scan.adjacency_row_scan(psi, cur.clone(), S_n, ent, offs, blk, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        made = {k: kernels.ROW_SCAN_LAUNCHES[k] - before[k] for k in before}
+        require(made == {**dict.fromkeys(before, 0), key: 2}, f"row scan: launches {made} for two calls")
+        require(all(torch.equal(a, b) for a, b in zip(*got)), "row scan: not bit-for-bit repeatable")
+        A_k, W_k, acc_k = got[0]
+        A_p, W_p, acc_p, open_p = row_scan.adjacency_row_scan_reference(psi, cur, S_n, ent, offs, blk, **kw,
+                                                                        margins=True)
+        R, M = A_p.shape
+        first = torch.where(open_p.any(1), open_p.int().argmax(1), torch.full((R,), M, device=dev))
+        before_open = torch.arange(M, device=dev)[None] < first[:, None]
+        w_err = float(torch.where(before_open, (W_k - W_p).abs() / torch.maximum(W_p.abs(), ent[:, 3]), 0.0).max())
+        agree = bool((((A_k == A_p) & (acc_k == acc_p)) | ~before_open).all())
+        n_open = int((first < M).sum())
+        K = kernels.row_scan_cluster(R, T if offs is None else offs.shape[1] * blk, kernels._sm_count(dev.index))
+        label = f"row scan {psi.dtype} C={C}"
+        log(f"{label} ({R} rows, {K} CTAs a row), kernel vs plain: A and accept flags "
+            f"{'agree' if agree else 'DIFFER'} before each row's first open decision, W error {w_err:.3e} of "
+            f"max(|W|, sigma); {n_open} of {R} rows meet an open decision; acceptance {float(acc_k.mean()):.4f} "
+            f"(plain {float(acc_p.mean()):.4f})")
+        require(agree and w_err <= 1e-5, f"{label}: the kernel and the plain version disagree")
+        require(n_open <= 0.01 * R or C < 16, f"{label}: {n_open} of {R} rows meet an open decision")
+
+        work = cur.clone()  # overwritten by every call: the kernel's time does not depend on the values
+        kern = lambda: row_scan.adjacency_row_scan(psi, work, S_n, ent, offs, blk, **kw)  # noqa: E731
+        plain = lambda: row_scan.adjacency_row_scan_reference(psi, cur, S_n, ent, offs, blk, **kw)  # noqa: E731
+        warm, cold = median_ms(kern, n=20), median_ms(kern, n=20, flush=flush)
+        plain_warm = median_ms(plain, n=3, warmup=1)
+        bound_ms, design_ms = row_scan_bound(psi, offs, blk)
+        log(f"{label} T={T} N={N}, median device time: kernel {warm:.4f} ms warm, {cold:.4f} ms cold; "
+            f"plain torch {plain_warm:.4f} ms warm; bound {bound_ms:.4f} ms (every operand read once, the "
+            f"current written once), share of the cold time {100 * bound_ms / cold:.1f} %; the design's "
+            f"traffic {design_ms:.4f} ms (psi_m, the previous psi, S and the current read, the current "
+            f"written, every entry), {100 * design_ms / cold:.1f} % of the cold time [{card}]")
+        stats = {"max_abs_err": float((W_k - W_p).abs().max()), "ms": warm, "cold_ms": cold, "plain_ms": plain_warm,
+                 "plain_cold_ms": None, "bound_ms": bound_ms, "bound_by": "bytes", "share": bound_ms / cold,
+                 "library_ms": None}
+        del psi, cur, S_n, ent, work, got
+        torch.cuda.empty_cache()
+    kernels.ROW_SCAN_LAUNCHES.update(saved)
+    return stats
 
 
 def _mismatch(x, y) -> tuple:
@@ -1721,7 +1894,7 @@ def long_recording_phase(dev, card) -> tuple:
         f"{ll_str:.3f}: rel {err:.3e}")
     require(got == launches_of(fwd=1), f"8d: the resident evaluation launched {got}")
     require(err <= 1e-5, f"8d: resident vs streamed log-likelihood rel err {err}")
-    before = _counted(pop_res)
+    before, rows0 = _counted(pop_res), dict(kernels.ROW_SCAN_LAUNCHES)
     t0 = time.perf_counter()
     samples, diag, state = gibbs_sample(
         pop_res, data, torch.Generator(device=dev).manual_seed(SEED), n_samples=LONG_SAMPLES,
@@ -1737,6 +1910,10 @@ def long_recording_phase(dev, card) -> tuple:
         f"{diag['accept_rate_glm']:.3f}, imp {diag['accept_rate_imp']:.3f}, adjacency "
         f"{diag['accept_rate_adjacency']:.3f}; peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     _require_sweep_launches("8d", got, evals, 1, sweeps)
+    rows = {k: kernels.ROW_SCAN_LAUNCHES[k] - rows0[k] for k in rows0}
+    batches = -(-N_LONG // LONG_ROW_BATCH)  # the first eager, the rest replayed from a CUDA graph
+    require(rows == {"row_scan": sweeps * batches, "row_scan_bf16": 0},
+            f"8d: row-scan launches {rows}, not one a row batch ({batches} an adjacency stage, {sweeps} stages)")
     _require_chains("8d", [state], samples)
     stage_ms = {}
     for stage in SWEEP_STAGES:  # one sweep of each stage alone, host clock
@@ -2035,7 +2212,8 @@ def _bf16_state_rel(pop32, pop16, params, data32, data16) -> tuple:
 def bf16_phase(sl, card: str) -> dict:
     """10b and 10c: the flagship with design_dtype=torch.bfloat16 on phase
     3's spikes, stimulus and model; returns the kernels' launches on its
-    paths (smart init and MAP; the sampler)."""
+    paths (smart init and MAP; the sampler) and the row scan's bf16
+    statistics (check_row_scan)."""
     dev = sl["pop"].device
     pop32, data32 = sl["pop"], sl["data"]
     pop = CountingPopulation(sl["spec"], device=dev, design_dtype=torch.bfloat16)
@@ -2081,6 +2259,8 @@ def bf16_phase(sl, card: str) -> dict:
         f"({1e3 * t_run / sweeps:.1f} ms per 4-chain sweep, sampler and summary) [{card}]; launches {launches}; "
         f"likelihood evaluations {ll_evals}")
     _require_sweep_launches("10b bf16 Gibbs", launches, ll_evals, BF16_CHAINS, sweeps, bf16=True)
+    require(kernels.ROW_SCAN_LAUNCHES == {"row_scan": 0, "row_scan_bf16": sweeps},
+            f"10b bf16 Gibbs: row-scan launches {kernels.ROW_SCAN_LAUNCHES}, not one bf16 launch a stage ({sweeps})")
     _require_chains("10b bf16 Gibbs", states, samples)
     _require_accept_rates("10b bf16 Gibbs", diag)
     min_ess = min(v["min_ess"] for v in summary["convergence"].values())
@@ -2089,6 +2269,7 @@ def bf16_phase(sl, card: str) -> dict:
         f"{diag['accept_rate_adjacency']}; link-prediction AUC {summary['link_prediction_auc']}, smallest ESS "
         f"{min_ess:.2f}, largest R-hat {max_rhat:.3f} (10 draws: reported, not checked)")
     path = _add(path, launches)
+    row_stats = check_row_scan(dev, card, pop, data, chains=(BF16_CHAINS,))
 
     # the card's bf16 against the CPU's bf16 at the final state, both semantics
     batched = stack_states(states)["params"]
@@ -2133,7 +2314,7 @@ def bf16_phase(sl, card: str) -> dict:
     log(f"phase 10b-c: {time.perf_counter() - t_phase:.2f} s; launches on its paths {path}")
     require(all(path[k] == 0 for k in F32_KERNELS), f"phase 10 launched a float32 kernel: {path}")
     require(all(path[k] > 0 for k in BF16_KERNELS), f"a K4 kernel of phase 10's path never launched: {path}")
-    return path
+    return path, row_stats
 
 
 # --- phase 11 ---------------------------------------------------------------
@@ -2360,6 +2541,7 @@ def multi_gpu_phase(sl, card) -> dict:
 def main() -> None:
     t_start = time.perf_counter()
     card = setup()
+    spy_adjacency_stage()
     dev = torch.device("cuda", torch.cuda.current_device())
     one = torch.zeros(1, device=dev)
     floor = median_ms(lambda: one.add_(1.0))
@@ -2382,6 +2564,7 @@ def main() -> None:
     require(gibbs_launches["fwd"] == 0 and gibbs_launches["vg"] == 0,
             f"the 4-chain sampler launched K1/K2: {gibbs_launches}")
     launches = _add(launches, gibbs_launches)
+    row_stats = {"row_scan": check_row_scan(dev, card, sl["pop"], sl["data"])}
 
     launches = _add(launches, acceptance_phase(dev, card))
     launches = _add(launches, variants_phase(dev, card, sl))
@@ -2404,7 +2587,8 @@ def main() -> None:
         check_bf16_kernels(dev, T_, N_LONG, 1, f"10a N={N_LONG} {label}", card, chains=False, on_device=True)
         torch.cuda.empty_cache()
     log(f"phase 10a: {time.perf_counter() - t0:.2f} s")
-    launches = _add(launches, bf16_phase(sl, card))
+    bf16_launches, row_stats["row_scan_bf16"] = bf16_phase(sl, card)
+    launches = _add(launches, bf16_launches)
     launches = _add(launches, multi_gpu_phase(sl, card))
 
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included [{card}]")
@@ -2431,6 +2615,11 @@ def main() -> None:
     entries += [{"name": f"{names[k].split()[0]}-wide fused_ll_{k}_wide", "route": "cuda",
                  "source": os.path.relpath(SOURCE_WIDE, REPO), "replaces": replaces[k],
                  "launches": wide_launches[k], **wide_stats[k]} for k in ("fwd", "vg")]
+    # the row scan replaces no TPU kernel: update_adjacency_collapsed is plain JAX there
+    require_row_scans("phase 11")
+    entries += [{"name": f"row-scan adjacency_{k}", "route": "cuda", "source": os.path.relpath(SOURCE_ROWS, REPO),
+                 "replaces": None, "launches": ROW_SCANS_ON_PATHS[k] + kernels.ROW_SCAN_LAUNCHES[k], **row_stats[k]}
+                for k in ROW_SCANS_ON_PATHS]
     require(all(e["launches"] > 0 for e in entries), f"a kernel was never launched on the main paths: {entries}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(gpu_name_and_power(), flush=True)

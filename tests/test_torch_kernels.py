@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import theano_pyglm_torch as pt
+from theano_pyglm_torch.inference import row_scan
 from theano_pyglm_torch.inference.map import split_params
 from theano_pyglm_torch.ops import kernels
 from theano_pyglm_torch.ops.cuda_loader import nvcc_flags
@@ -178,6 +179,60 @@ def test_wrappers_reject_bad_operands(bad):
     for fn in (fused_ll_value, fused_ll_value_and_grad):
         with pytest.raises(ValueError):
             fn(x, u, ir, s, DT)
+
+
+def _row_scan_operands(R=4, M=3, T=96, n_blk=2, blk=8, seed=0, dtype=torch.float64):
+    """Row-scan operands (row_scan.adjacency_row_scan) on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    psi = 0.5 * torch.rand((M, R, T), generator=g, dtype=dtype)
+    cur = 1.0 + 0.3 * torch.randn((R, T), generator=g, dtype=dtype)
+    S = torch.poisson(torch.full((R, T), 0.2, dtype=dtype), generator=g)
+    A = (torch.rand((R, M), generator=g) < 0.5).to(dtype)
+    W = 0.3 * torch.randn((R, M), generator=g, dtype=dtype)
+    mu, logit = torch.zeros((R, M), dtype=dtype), torch.zeros((R, M), dtype=dtype)
+    sig = torch.full((R, M), 0.5, dtype=dtype)
+    u = torch.rand((3, R, M), generator=g, dtype=dtype)
+    z = torch.randn((R, M), generator=g, dtype=dtype)
+    ent = torch.stack((A, W, mu, sig, logit, *u, z), 1)
+    offs = torch.randint(0, T - blk, (R, n_blk), generator=g)
+    return psi, cur, S, ent, offs, blk
+
+
+def test_row_scan_takes_the_plain_version_on_the_cpu_and_raises_on_what_the_kernel_cannot_take():
+    """CPU tensors go to the plain version (no launch counted); operands
+    that disagree in shape, offsets past T, or a device that is neither all
+    CPU nor one CUDA device raise before any launch."""
+    psi, cur, S, ent, offs, blk = _row_scan_operands()
+    kw = dict(beta=1.0, dt=DT, n_newton=8)
+    before = dict(kernels.ROW_SCAN_LAUNCHES)
+    cur0 = cur.clone()
+    for o in (offs, None):
+        got = row_scan.adjacency_row_scan(psi, cur, S, ent, o, blk, **kw)
+        want = row_scan.adjacency_row_scan_reference(psi, cur, S, ent, o, blk, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert set(torch.unique(got[0]).tolist()) <= {0.0, 1.0} and set(torch.unique(got[2]).tolist()) <= {0.0, 1.0}
+    assert kernels.ROW_SCAN_LAUNCHES == before and torch.equal(cur, cur0)
+    with pytest.raises(ValueError):
+        row_scan.adjacency_row_scan(psi, cur[:, 1:], S, ent, offs, blk, **kw)
+    with pytest.raises(ValueError):
+        row_scan.adjacency_row_scan(psi, cur, S, ent[:, :8], offs, blk, **kw)
+    with pytest.raises(ValueError):
+        row_scan.adjacency_row_scan(psi, cur, S, ent, offs, 64, **kw)
+    with pytest.raises(ValueError):
+        row_scan.adjacency_row_scan(psi.to("meta"), cur, S, ent, offs, blk, **kw)
+    with pytest.raises(ValueError):
+        kernels.row_scan_cluster(27, 10**6, H100_SMS)
+
+
+@pytest.mark.parametrize("rows, T_sub, want", [(432, 16384, 1), (216, 16384, 1), (108, 16384, 2), (54, 16384, 4),
+                                               (27, 16384, 8), (2, 3000, 8), (432, 40000, 4)])
+def test_row_scan_cluster_fills_the_sms(rows, T_sub, want):
+    """CTAs a row: one where the rows fill the 132 SMs, else the least power
+    of two that fills them (at most 8), and enough that a CTA's share of the
+    subsample fits its shared memory."""
+    k = kernels.row_scan_cluster(rows, T_sub, H100_SMS)
+    assert k == want
+    assert kernels.row_scan_smem_bytes(T_sub, k) <= kernels.SMEM_LIMIT
 
 
 # --- CPU: the launch geometry of the CUDA kernels --------------------------
@@ -463,16 +518,106 @@ def test_row_batches_replayed_as_a_cuda_graph_give_the_same_update(cuda, monkeyp
     """On the card the collapsed adjacency stage replays its full row batches
     after the first as a CUDA graph (N=9, two rows a batch: one eager, three
     replayed, one ragged): the same A and W as every batch run eagerly, bit
-    for bit."""
+    for bit, and the row-scan kernel's launch count rises by one a row
+    batch either way, the replayed batches included."""
     from theano_pyglm_torch.inference import gibbs
 
     pop = pt.Population(pt.make_model("sparse_weighted_model", 9, bkgd={"type": "none"}), device=cuda)
     p = pop.sample(torch.Generator(device=cuda).manual_seed(0))
     S = torch.poisson(torch.full((3000, 9), 0.02, device=cuda), generator=torch.Generator(device=cuda).manual_seed(1))
     d = pop.prepare_data(S)
-    out = []
+    out, launches = [], []
     for graphed in (False, True):
         monkeypatch.setattr(gibbs, "GRAPH_ROW_BATCHES", graphed)
+        before = dict(kernels.ROW_SCAN_LAUNCHES)
         out.append(gibbs.update_adjacency_collapsed(torch.Generator(device=cuda).manual_seed(2), pop, p, d,
                                                     row_batch=2))
+        launches.append({k: kernels.ROW_SCAN_LAUNCHES[k] - before[k] for k in before})
     assert torch.equal(out[0]["A"], out[1]["A"]) and torch.equal(out[0]["W"], out[1]["W"])
+    assert launches == [{"row_scan": 5, "row_scan_bf16": 0}] * 2, launches
+
+
+
+# --- card: the adjacency stage's row scan against its plain version ------
+
+ROW_SCAN_ROWS = 432  # rows compared in each case: the flagship's 16 chains × 27
+
+
+def _row_scan_calls(cuda, monkeypatch, C, T, design_dtype=torch.float32, seed=0):
+    """The row-scan calls of ceil(432 / (C·27)) adjacency stages of a
+    flagship-shaped problem (N=27, bias N(3, 0.4), a white-noise stimulus,
+    Poisson spikes at ~20 Hz)
+    with C chains (C = 1: one chain's params, no chain axis): each call's
+    operands as the stage passed them, cloned before the kernel overwrote
+    the current, and the kernel launches each stage made."""
+    from theano_pyglm_torch.inference import gibbs
+
+    N = 27
+    pop = pt.Population(pt.make_model("distance_weighted_model", N, bias={"mu": 3.0, "sigma": 0.4}), device=cuda,
+                        design_dtype=design_dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    S = torch.poisson(torch.full((T, N), 0.02, device=cuda), generator=g)
+    data = pop.prepare_data(S, stim=np.random.RandomState(seed).randn(T, 1).astype(np.float32))
+    calls, launches = [], []
+    scan = row_scan.adjacency_row_scan
+
+    def recorded(psi, cur, S_n, ent, offs=None, blk=0, **kw):
+        calls.append(((psi, cur.clone(), S_n, ent, offs, blk), kw))
+        return scan(psi, cur, S_n, ent, offs, blk, **kw)
+
+    with monkeypatch.context() as patched:
+        patched.setattr(row_scan, "adjacency_row_scan", recorded)
+        for k in range(-(-ROW_SCAN_ROWS // (C * N))):
+            samples = [pop.sample(g) for _ in range(C)]
+            params = samples[0] if C == 1 else {key: torch.stack([p[key] for p in samples]) for key in samples[0]}
+            gens = torch.Generator(device=cuda).manual_seed(100 + k)
+            gens = gens if C == 1 else [torch.Generator(device=cuda).manual_seed(100 * k + c) for c in range(C)]
+            before = dict(kernels.ROW_SCAN_LAUNCHES)
+            gibbs.update_adjacency_collapsed(gens, pop, params, data)
+            launches.append({key: kernels.ROW_SCAN_LAUNCHES[key] - before[key] for key in before})
+    return calls, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, T, bf16", [(2, 60_000, False), (16, 60_000, False), (2, 12_000, False),
+                                        (2, 60_000, True), (1, 60_000, False)],
+                         ids=["flagship-c2", "flagship-c16", "no-subsample", "bf16-design", "one-chain"])
+def test_row_scan_kernel_matches_the_plain_version_on_card(cuda, monkeypatch, C, T, bf16):
+    """The row-scan kernel against its plain version on the card, on the
+    operands of the adjacency stages of 432 rows in all: the flagship shape
+    at 2 and 16 chains (the time subsample), T ≤ SUBSAMPLE_T (none), a bf16
+    design's ψ, and one chain (8 CTAs a row). Each stage is one launch.
+
+    In every row, up to its first entry whose birth or MH decision lies in
+    the plain run within float32's rounding bound of its sums (another order
+    of summation may decide it otherwise), A and the accept flags agree and
+    W agrees to 1e-5 of max(|W|, σ_W); at most 1 % of the rows meet such an
+    entry. Two launches on the same operands agree bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calls, launches = _row_scan_calls(cuda, monkeypatch, C, T, torch.bfloat16 if bf16 else torch.float32)
+    key = "row_scan_bf16" if bf16 else "row_scan"
+    assert all(n == {"row_scan": 0, "row_scan_bf16": 0, key: 1} for n in launches), launches
+    rows = opened = 0
+    worst_w = 0.0
+    for (psi, cur, S_n, ent, offs, blk), kw in calls:
+        assert psi.dtype == (torch.bfloat16 if bf16 else torch.float32) and (offs is None) == (T <= 16384)
+        got = [row_scan.adjacency_row_scan(psi, cur.clone(), S_n, ent, offs, blk, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*got)), "the row scan does not repeat bit for bit"
+        A_k, W_k, acc_k = got[0]
+        A_p, W_p, acc_p, open_p = row_scan.adjacency_row_scan_reference(psi, cur, S_n, ent, offs, blk, **kw,
+                                                                        margins=True)
+        R, M = A_p.shape
+        first = torch.where(open_p.any(1), open_p.int().argmax(1), torch.full((R,), M, device=cuda))
+        before_open = torch.arange(M, device=cuda)[None] < first[:, None]
+        sig = ent[:, 3]
+        w_err = (W_k - W_p).abs() / torch.maximum(W_p.abs(), sig)
+        assert bool(((A_k == A_p) | ~before_open).all()), "A differs before the first open decision"
+        assert bool(((acc_k == acc_p) | ~before_open).all()), "accept flags differ before the first open decision"
+        worst_w = max(worst_w, float(torch.where(before_open, w_err, 0.0).max()))
+        rows += R
+        opened += int((first < M).sum())
+    print(f"row scan C={C} T={T} bf16={bf16}: {opened} of {rows} rows meet an open decision; "
+          f"worst W error before it {worst_w:.3e} of max(|W|, sigma)")
+    assert worst_w <= 1e-5
+    assert opened <= 0.01 * rows, f"{opened} of {rows} rows meet a decision within the rounding bound"

@@ -7,8 +7,11 @@ perturbs neuron n's current by W[n,m]·ψ[:, n, m], where
     ψ[t, n, m] = X_imp[t, m, :] · w_eff[n, m, :]
 
 so the adjacency stages update all N postsynaptic rows at once (rows are a
-batch dimension of every tensor) and the entries of a row in sequence (a
-Python loop of fixed length over m, carrying the rows' running currents).
+batch dimension of every tensor) and the entries of a row in sequence,
+carrying the rows' running currents: a Python loop of fixed length over m,
+or, for the collapsed (A, W) update of the exp-Poisson model, the row scan
+of :func:`~theano_pyglm_torch.inference.row_scan.adjacency_row_scan` (one
+kernel launch on the card).
 Inside a stage nothing reads a device value on the host: accept/reject,
 clipping and the escape hatches are tensor ops, and every random number of
 a stage is drawn up front from the caller's ``torch.Generator``, so
@@ -54,8 +57,10 @@ import math
 
 import torch
 
+from theano_pyglm_torch.inference import row_scan
 from theano_pyglm_torch.models.components import GAIN_PRIOR_MU, GAIN_PRIOR_SD
-from theano_pyglm_torch.ops.clipping import clip_exponent, exp_clipped, exponent_active
+from theano_pyglm_torch.ops import kernels
+from theano_pyglm_torch.ops.clipping import exp_clipped, exponent_active
 from theano_pyglm_torch.ops.distributions import (
     draw,
     sample_beta,
@@ -71,7 +76,6 @@ from theano_pyglm_torch.utils.dtypes import bf16_rounded
 SUBSAMPLE_T = 16384  # Newton fits run on at most this many bins
 SUBSAMPLE_BLK = 2048  # contiguous bins per block
 
-_LOG2PI = 1.8378770664093453
 _HALF_LOG2PI = 0.9189385332046727
 
 __all__ = [
@@ -185,16 +189,17 @@ _GRAPH_STATE: dict = {}
 
 def _replay_rows(row_fn, args: tuple, step: int) -> list:
     """The row batches of :func:`_map_rows` with the host's launch cost paid
-    twice a call instead of once a batch. A row update is hundreds of small
-    kernels per entry (the Newton fit, the MH step), so with a few rows a
-    batch it is bound by host launches (N=100, ``row_batch=4``: ~35,000
-    launches a batch). The first batch runs eagerly (it also initializes
+    twice a call instead of once a batch. An exp-Poisson row update is a
+    few launches (ψ's product, the rows' current, the row-scan kernel), so
+    with many small batches the host's launch cost adds up a batch at a
+    time. The first batch runs eagerly (it also initializes
     whatever the kernels create lazily), is captured once on a side stream
     from static copies of its inputs, and every later full batch copies its
     rows into those inputs and replays the capture: the same kernels on the
     same shapes. A ragged last batch runs eagerly. The capture shares the
     previous call's memory pool, so the memory held does not grow with the
-    calls."""
+    calls. The row-scan kernel's launch count (``kernels.ROW_SCAN_LAUNCHES``)
+    counts the launches the replays make, and none for the capture."""
     n = args[0].shape[0]
     full = n - n % step
     parts = [row_fn(*(a[:step] for a in args))]
@@ -204,6 +209,7 @@ def _replay_rows(row_fn, args: tuple, step: int) -> list:
     main = torch.cuda.current_stream(dev)
     side.wait_stream(main)
     g = torch.cuda.CUDAGraph()
+    counted = dict(kernels.ROW_SCAN_LAUNCHES)
     with torch.cuda.stream(side):
         g.capture_begin(pool=None if prev is None else prev.pool())
         try:
@@ -214,6 +220,9 @@ def _replay_rows(row_fn, args: tuple, step: int) -> list:
         prev.reset()
     _GRAPH_STATE[dev] = (side, g)
     main.wait_stream(side)
+    replays = len(range(step, full, step))
+    for key, n0 in counted.items():  # the capture launched nothing; each replay what it captured
+        kernels.ROW_SCAN_LAUNCHES[key] += (kernels.ROW_SCAN_LAUNCHES[key] - n0) * (replays - 1)
     for i in range(step, full, step):
         for s, a in zip(static, args):
             s.copy_(a[i : i + step])
@@ -319,10 +328,13 @@ def update_adjacency_collapsed(
     The exp-Poisson model shapes its proposal (Newton, evidence) by closed
     forms on a time subsample of at most ``SUBSAMPLE_T`` bins:
     ``SUBSAMPLE_T // SUBSAMPLE_BLK`` contiguous blocks at random offsets
-    drawn once per call (per chain), gathered as one index. Every other
-    model uses the exact ΔLL over the full T, with Newton's derivatives by
-    autograd. Returns the new params, and with ``return_accept`` also the
-    mean acceptance over all N² entries (of each chain).
+    drawn once per call (per chain); its rows' entry scans are
+    :func:`~theano_pyglm_torch.inference.row_scan.adjacency_row_scan`, one
+    launch of the row-scan kernel a call (a row batch) on the card. Every
+    other model uses the exact ΔLL over the full T, with Newton's
+    derivatives by autograd (:func:`_generic_row_scan`). Returns the new
+    params, and with ``return_accept`` also the mean acceptance over all N²
+    entries (of each chain).
     """
     f, dev = pop.dtype, pop.device
     lead = params["A"].shape[:-2]  # (C,) for chains: their rows are C·N rows
@@ -352,152 +364,59 @@ def update_adjacency_collapsed(
         blk = SUBSAMPLE_BLK
         n_blk = T_sub // blk
         offs = draw(generator, lambda g: torch.randint(0, T_full - blk, (n_blk,), generator=g, device=dev))
-        idx = (offs[..., :, None] + torch.arange(blk, device=dev)).reshape(*lead, -1)
-        # each row gathers its chain's subsample from its full-T ψ, S and I_rest
-        sub_rows = (_rows(idx[..., None, :].expand(*lead, N, T_sub), lead),)
-        scale_sub = T_full / T_sub
-    else:
-        scale_sub = 1.0
+        # each row gathers its chain's subsample from its full-T ψ, S and current
+        sub_rows = (_rows(offs[..., None, :].expand(*lead, N, n_blk), lead).contiguous(),)
     # every draw of the sweep, entry-indexed: birth, mixture, MH uniforms and
     # the one normal shared by the mutually exclusive weight proposals
     u3 = draw(generator, lambda g: torch.rand((3, N, N), generator=g, dtype=f, device=dev))
     u_a, u_mix, u_acc = u3.unbind(-3)
     z = draw(generator, lambda g: torch.randn((N, N), generator=g, dtype=f, device=dev))
+    # (C·N, 9, N): each row's entries' A, W, priors and draws (row_scan.ROW_SCAN_FIELDS)
+    ent = torch.stack([_rows(x, lead) for x in (params["A"], params["W"], MU, SIG, logit_prior,
+                                                u_a, u_mix, u_acc, z)], 1)
 
-    def row_update(A_n, W_n, w_eff_n, S_n, I_rest_n, mu_n, sig_n, logit_n, ua_n, umix_n, uacc_n, z_n, *idx_n):
+    def row_update(w_eff_n, S_n, I_rest_n, ent_n, *offs_n):
         psi_n = _row_psi(pop, data, w_eff_n)  # (M, R, T); bfloat16 for a bfloat16 design
+        A_n, W_n = ent_n[:, 0], ent_n[:, 1]
         I_n = I_rest_n + torch.einsum("mrt,rm->rt", psi_n.to(I_rest_n.dtype), A_n * W_n)
         if fast:
-            if use_sub:
-                (idx_n,) = idx_n  # (R, T_sub) bins of each row's chain
-                psi_sub = psi_n.gather(-1, idx_n.expand(psi_n.shape[0], *idx_n.shape))
-                S_sub_n, I_rest_sub_n = S_n.gather(-1, idx_n), I_rest_n.gather(-1, idx_n)
-                I_sub = I_rest_sub_n + torch.einsum("mrt,rm->rt", psi_sub.to(I_rest_n.dtype), A_n * W_n)
-            else:
-                psi_sub, S_sub_n = psi_n, S_n
-            a_sub_all = torch.einsum("rt,mrt->rm", S_sub_n, psi_sub.to(S_sub_n.dtype)) * scale_sub  # Σ S·ψ
-            # the carried current's likelihood scalars Σ S·clip(I_n), Σ e^{clip(I_n)}
-            I_c = clip_exponent(I_n)
-            sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
-        A_cols, W_cols, acc_cols = [], [], []
-        for m in range(N):
-            a_cur, w_cur = A_n[:, m], W_n[:, m]
-            g_cur = (a_cur * w_cur)[:, None]
-            psi_m = psi_n[m]
-            I_wo = I_n - g_cur * psi_m
-            mu, sig, logit = mu_n[:, m], sig_n[:, m], logit_n[:, m]
-            prec = 1.0 / (sig * sig)
-            if fast:
-                if use_sub:
-                    psi_s = psi_sub[m]
-                    I_s = I_sub - g_cur * psi_s
-                else:
-                    psi_s, I_s = psi_m, I_wo
-                a_sub = a_sub_all[:, m]
-                I0s_c = clip_exponent(I_s)
-                sum_E0s = torch.exp(I0s_c).sum(-1)
-                sum_S_I0s = (S_sub_n * I0s_c).sum(-1)
-
-                def dll_grad_hess(w):
-                    # subsampled ΔLL derivatives, by the closed form
-                    up = exp_clipped(I_s + w[:, None] * psi_s) * psi_s
-                    return beta * (a_sub - dt * scale_sub * up.sum(-1)), beta * (-dt * scale_sub * (up * psi_s).sum(-1))
-
-                def dll_star_of(w):
-                    I1 = clip_exponent(I_s + w[:, None] * psi_s)
-                    return beta * scale_sub * (
-                        ((S_sub_n * I1).sum(-1) - sum_S_I0s) - dt * (torch.exp(I1).sum(-1) - sum_E0s)
-                    )
-            else:
-                ll_wo = obs.log_likelihood(S_n, I_wo, nlin, dt).sum(-1)
-
-                def dll_fit(w, I_wo=I_wo, psi_m=psi_m, ll_wo=ll_wo):
-                    # the exact full-T ΔLL of the edge at weight w
-                    return beta * (obs.log_likelihood(S_n, I_wo + w[:, None] * psi_m, nlin, dt).sum(-1) - ll_wo)
-
-                def dll_grad_hess(w):
-                    return _grad_and_curvature(dll_fit, w)
-
-                dll_star_of = dll_fit
-
-            def g_grad_hess(w):
-                # ΔLL derivatives plus the Gaussian prior's
-                d1, d2 = dll_grad_hess(w)
-                return d1 - (w - mu) * prec, d2 - prec
-
-            # Newton from the prior mean: a state-independent seed, so the
-            # proposal is a genuine independence proposal (the JAX package's
-            # A/B seed switch _SEED_MODE='state' is not ported)
-            w_star = mu
-            for _ in range(n_newton):
-                d1, d2 = g_grad_hess(w_star)
-                w_star = w_star - d1 / torch.minimum(d2, -0.1 * prec)
-            h_star = torch.minimum(g_grad_hess(w_star)[1], -0.1 * prec)
-            s = torch.sqrt(-1.0 / h_star)
-
-            zs = (w_star - mu) / sig
-            log_z1 = dll_star_of(w_star) - 0.5 * (zs * zs + _LOG2PI) - torch.log(sig) + 0.5 * _LOG2PI + torch.log(s)
-            p_birth = torch.sigmoid(torch.clamp(logit + log_z1, -3.5, 3.5))
-
-            a_prop = (ua_n[:, m] < p_birth).to(f)
-            w_prior = mu + sig * z_n[:, m]
-            w_birth = torch.where(umix_n[:, m] < 0.8, w_star + s * z_n[:, m], w_prior)
-            w_prop = torch.where(a_prop > 0, w_birth, w_prior)
-
-            if fast:
-                # exact full-T ΔLL at the proposal; the current state's is free
-                # from the carried scalars (multiplied by a=0 when A[n,m]=0)
-                I_wo_c = clip_exponent(I_wo)
-                I1p_c = clip_exponent(I_wo + w_prop[:, None] * psi_m)
-                sum_S_Iwo = (S_n * I_wo_c).sum(-1)
-                sum_E_wo = torch.exp(I_wo_c).sum(-1)
-                dll_prop = beta * (((S_n * I1p_c).sum(-1) - sum_S_Iwo) - dt * (torch.exp(I1p_c).sum(-1) - sum_E_wo))
-                dll_cur = beta * ((sS - sum_S_Iwo) - dt * (sE - sum_E_wo))
-            else:
-                dll_prop, dll_cur = dll_fit(w_prop), dll_fit(w_cur)
-
-            def log_target(a, w, dll_w):
-                zp = (w - mu) / sig
-                return -0.5 * (zp * zp + _LOG2PI) - torch.log(sig) + a * (dll_w + logit)
-
-            def log_proposal(a, w):
-                zq = (w - w_star) / s
-                lq_hat = -0.5 * (zq * zq + _LOG2PI) - torch.log(s)
-                zp = (w - mu) / sig
-                lq0 = -0.5 * (zp * zp + _LOG2PI) - torch.log(sig)
-                lq1 = torch.logaddexp(math.log(0.8) + lq_hat, math.log(0.2) + lq0)
-                return torch.where(a > 0, torch.log(p_birth) + lq1, torch.log1p(-p_birth) + lq0)
-
-            log_alpha = (
-                log_target(a_prop, w_prop, dll_prop) - log_proposal(a_prop, w_prop)
-                - log_target(a_cur, w_cur, dll_cur) + log_proposal(a_cur, w_cur)
-            )
-            accept = torch.log(uacc_n[:, m]) < log_alpha
-            a_new = torch.where(accept, a_prop, a_cur)
-            w_new = torch.where(accept, w_prop, w_cur)
-            g_new = (a_new * w_new)[:, None]
-            I_n = I_wo + g_new * psi_m
-            if fast:
-                I_c = clip_exponent(I_n)
-                sS, sE = (S_n * I_c).sum(-1), torch.exp(I_c).sum(-1)
-            if use_sub:
-                I_sub = (I_sub - g_cur * psi_s) + g_new * psi_s
-            A_cols.append(a_new)
-            W_cols.append(w_new)
-            acc_cols.append(accept)
-        acc = torch.stack(acc_cols, 1).to(f).mean(1)
-        return torch.stack(A_cols, 1), torch.stack(W_cols, 1), acc
+            offs_n = offs_n[0] if offs_n else None  # (R, n_blk) block offsets of each row's chain
+            return row_scan.adjacency_row_scan(psi_n, I_n.contiguous(), S_n.contiguous(), ent_n, offs_n,
+                                               SUBSAMPLE_BLK, beta=beta, dt=dt, n_newton=n_newton)
+        return _generic_row_scan(psi_n, I_n, S_n, ent_n, obs, nlin, dt, beta, n_newton)
 
     A_new, W_new, acc = _map_rows(
         row_update,
-        tuple(_rows(x, lead) for x in (params["A"], params["W"], w_eff_all)) + (
-            _time_rows(S, lead), _time_rows(I_rest, lead)) + tuple(
-            _rows(x, lead) for x in (MU, SIG, logit_prior, u_a, u_mix, u_acc, z)) + sub_rows,
+        (_rows(w_eff_all, lead), _time_rows(S, lead), _time_rows(I_rest, lead), ent) + sub_rows,
         row_batch,
         graph=fast,  # the autograd branches are not captured
     )
     out = {**params, "A": A_new.view(*lead, N, N), "W": W_new.view(*lead, N, N)}
-    return (out, acc.view(*lead, N).mean(-1)) if return_accept else out
+    return (out, acc.mean(1).view(*lead, N).mean(-1)) if return_accept else out
+
+
+def _generic_row_scan(psi, I_n, S_n, ent, obs, nlin, dt, beta, n_newton):
+    """The birth–death row scan of any (observation, nonlinearity) pair: the
+    exact full-T ΔLL of each entry, its Newton derivatives by autograd.
+    Returns (A, W, accept), each (R, M)."""
+    A, W, MU, SIG, LOGIT, U_A, U_MIX, U_ACC, Z = ent.unbind(1)
+    cols = []
+    for m in range(psi.shape[0]):
+        a_cur, w_cur = A[:, m], W[:, m]
+        psi_m = psi[m]
+        I_wo = I_n - (a_cur * w_cur)[:, None] * psi_m
+        ll_wo = obs.log_likelihood(S_n, I_wo, nlin, dt).sum(-1)
+
+        def dll_fit(w, I_wo=I_wo, psi_m=psi_m, ll_wo=ll_wo):
+            # the exact full-T ΔLL of the edge at weight w
+            return beta * (obs.log_likelihood(S_n, I_wo + w[:, None] * psi_m, nlin, dt).sum(-1) - ll_wo)
+
+        a_new, w_new, accept, _ = row_scan.birth_death_entry(
+            lambda w: _grad_and_curvature(dll_fit, w), dll_fit, lambda w: (dll_fit(w), dll_fit(w_cur)),
+            a_cur, w_cur, MU[:, m], SIG[:, m], LOGIT[:, m], U_A[:, m], U_MIX[:, m], U_ACC[:, m], Z[:, m], n_newton)
+        I_n = I_wo + (a_new * w_new)[:, None] * psi_m
+        cols.append((a_new, w_new, accept.to(I_n.dtype)))
+    return tuple(torch.stack(c, 1) for c in zip(*cols))
 
 
 # ---------------------------------------------------------------------------

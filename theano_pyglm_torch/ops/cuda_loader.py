@@ -5,13 +5,15 @@ The sources in ``theano_pyglm_torch/csrc/`` have a plain C interface:
 K2's instance for a U too wide for shared memory), ``fused_poisson_ll_bf16.cu`` (K4-fwd,
 K4-vg: the bfloat16 design) and ``fused_ll_chains.cu`` (the four
 chain-batched kernels: K3-fwd, K3-vg, K4-fwd-chains, K4-vg-chains), all
-including ``fused_ll_common.cuh``, the helpers they share. At first use :func:`build_all` compiles each with nvcc for
+including ``fused_ll_common.cuh``, the helpers they share, and
+``adjacency_rows.cu`` (the collapsed adjacency stage's row scan, on its
+own). At first use :func:`build_all` compiles each with nvcc for
 Hopper (``sm_90a``), one process per source, all started together, into a
 shared library under ``theano_pyglm_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source, the header and the flags so
 a stale build is never loaded; :func:`load_fused_ll`, :func:`load_fused_ll_wide`,
-:func:`load_fused_ll_bf16` and :func:`load_fused_ll_chains` open them
-with ctypes. The clip constant comes from
+:func:`load_fused_ll_bf16`, :func:`load_fused_ll_chains` and
+:func:`load_adjacency_rows` open them with ctypes. The clip constant comes from
 :mod:`theano_pyglm_torch.ops.clipping` as ``-DEXP_CLIP``.
 
 No step falls back: a missing nvcc or a failed compile raises.
@@ -34,6 +36,7 @@ __all__ = [
     "SOURCE_WIDE",
     "SOURCE_BF16",
     "SOURCE_CHAINS",
+    "SOURCE_ROWS",
     "BUILD_DIR",
     "nvcc_flags",
     "build_all",
@@ -41,6 +44,7 @@ __all__ = [
     "load_fused_ll_wide",
     "load_fused_ll_bf16",
     "load_fused_ll_chains",
+    "load_adjacency_rows",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -48,7 +52,8 @@ SOURCE = _PKG / "csrc" / "fused_poisson_ll.cu"
 SOURCE_WIDE = _PKG / "csrc" / "fused_poisson_ll_wide.cu"
 SOURCE_BF16 = _PKG / "csrc" / "fused_poisson_ll_bf16.cu"
 SOURCE_CHAINS = _PKG / "csrc" / "fused_ll_chains.cu"
-SOURCES = (SOURCE, SOURCE_WIDE, SOURCE_BF16, SOURCE_CHAINS)
+SOURCES = (SOURCE, SOURCE_WIDE, SOURCE_BF16, SOURCE_CHAINS)  # the fused log-likelihood's
+SOURCE_ROWS = _PKG / "csrc" / "adjacency_rows.cu"
 HEADER = _PKG / "csrc" / "fused_ll_common.cuh"  # included by every source
 BUILD_DIR = _PKG / "_build"
 
@@ -106,10 +111,11 @@ def _finish(out: Path, job) -> tuple[Path, str]:
 
 
 def build_all(sources=None) -> dict:
-    """Compile the libraries of ``sources`` (default: all of SOURCES) that
-    are not built yet, one nvcc process each, all started together. Returns
-    {source: (library path, nvcc's output; empty when it was built)}."""
-    jobs = {src: _start(src) for src in (sources or SOURCES)}
+    """Compile the libraries of ``sources`` (default: all of SOURCES and
+    SOURCE_ROWS) that are not built yet, one nvcc process each, all started
+    together. Returns {source: (library path, nvcc's output; empty when it
+    was built)}."""
+    jobs = {src: _start(src) for src in (sources or SOURCES + (SOURCE_ROWS,))}
     return {src: _finish(*job) for src, job in jobs.items()}
 
 
@@ -164,3 +170,21 @@ def load_fused_ll_chains() -> ctypes.CDLL:
     alike (``fused_ll_fwd_chains``, ``fused_ll_vg_chains`` and their
     ``_bf16`` names)."""
     return _load(SOURCE_CHAINS)
+
+
+@functools.lru_cache(maxsize=None)
+def load_adjacency_rows() -> ctypes.CDLL:
+    """The library of the adjacency stage's row scan (``adjacency_row_scan``
+    and its bfloat16-ψ instance ``adjacency_row_scan_bf16``)."""
+    path, _ = build_all((SOURCE_ROWS,))[SOURCE_ROWS]
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (psi, offs, cur, S, ent, out, R, M, T, n_blk, blk, K, n_newton, smem_bytes, device,
+    #  beta, dt, scale, dt_scale, beta_scale, stream)
+    for name in ("adjacency_row_scan", "adjacency_row_scan_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 6 + [i32] * 9 + [f32] * 5 + [ptr]
+        fn.restype = i32
+    lib.adjacency_row_scan_error_string.argtypes = [i32]
+    lib.adjacency_row_scan_error_string.restype = ctypes.c_char_p
+    return lib

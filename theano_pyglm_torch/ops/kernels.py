@@ -82,6 +82,14 @@ small parts in shared memory, so they take column groups of their own
 (:func:`k4_group_cols`): the n-tiles cut as evenly as they can be into the
 fewest groups whose split U fits beside 32-bin tiles (N = 100 at NB = 500:
 four).
+
+The collapsed adjacency stage's row scan (:func:`row_scan`,
+``csrc/adjacency_rows.cu``) is a hand kernel that ports no TPU kernel: the
+JAX package's stage is a ``lax.scan``. One launch runs every row's
+birth–death updates of its entries in order; the algorithm, its plain
+version and the dispatch between them are
+:mod:`theano_pyglm_torch.inference.row_scan`. Launches count in
+:data:`ROW_SCAN_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -99,6 +107,7 @@ __all__ = [
     "DU_TILE",
     "LAUNCHES",
     "MAX_CHAINS",
+    "ROW_SCAN_LAUNCHES",
     "WIDE_LAUNCHES",
     "SMEM_LIMIT",
     "THREADS",
@@ -113,6 +122,9 @@ __all__ = [
     "k4_group_cols",
     "k4_vg_items",
     "mma_tiles",
+    "row_scan",
+    "row_scan_cluster",
+    "row_scan_smem_bytes",
     "vg_chains_items",
     "vg_chains_k_slices",
     "fused_ll_value",
@@ -149,6 +161,10 @@ LAUNCHES = {"fwd": 0, "vg": 0, "fwd_chains": 0, "vg_chains": 0,
             "fwd_bf16": 0, "vg_bf16": 0, "fwd_chains_bf16": 0, "vg_chains_bf16": 0}
 # Of LAUNCHES["fwd"] and ["vg"], those of the wide-U instance.
 WIDE_LAUNCHES = {"fwd": 0, "vg": 0}
+# Launches of the adjacency stage's row scan (csrc/adjacency_rows.cu), a
+# bfloat16 ψ under "row_scan_bf16": one a stage call and row batch, the
+# replays of a captured row batch included (inference/gibbs.py _replay_rows).
+ROW_SCAN_LAUNCHES = {"row_scan": 0, "row_scan_bf16": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -1072,3 +1088,75 @@ def fused_poisson_ll_chains(x_f, u, i_rest, s, dt: float):
     return FusedPoissonLLChains.apply(
         x_f.contiguous(), u.contiguous(), i_rest.contiguous(), s.contiguous(), float(dt)
     )
+
+
+# ---------------------------------------------------------------------------
+# the collapsed adjacency stage's row scan
+# ---------------------------------------------------------------------------
+
+ROW_SCAN_MAX_CLUSTER = 8  # CTAs a row, at most (a portable cluster)
+
+
+def row_scan_cluster(R: int, T_sub: int, sm_count: int) -> int:
+    """CTAs a row of the row scan (a cluster of them shares its sums through
+    distributed shared memory): 1 where the R rows fill the SMs, else the
+    least power of two that does, at most ROW_SCAN_MAX_CLUSTER; more where a
+    CTA's share of the subsample (ψ_s, I_s and S_sub, 12 bytes a bin) would
+    not fit its shared memory. Raises where even the largest cluster's does
+    not."""
+    k = 1
+    while k < ROW_SCAN_MAX_CLUSTER and (R * k < sm_count or row_scan_smem_bytes(T_sub, k) > SMEM_LIMIT):
+        k *= 2
+    if row_scan_smem_bytes(T_sub, k) > SMEM_LIMIT:
+        raise ValueError(f"a subsample of {T_sub} bins does not fit {ROW_SCAN_MAX_CLUSTER} CTAs' shared memory")
+    return k
+
+
+def row_scan_smem_bytes(T_sub: int, K: int) -> int:
+    """A row-scan CTA's dynamic shared memory: its 1/K of ψ_s, I_s, S_sub."""
+    return 12 * -(-T_sub // K)
+
+
+def row_scan(psi, cur, S, ent, offs, blk: int, *, beta: float, dt: float, n_newton: int):
+    """One launch of the row-scan kernel (``csrc/adjacency_rows.cu``) on
+    operands of one CUDA device, shaped as
+    :func:`theano_pyglm_torch.inference.row_scan.adjacency_row_scan` takes
+    them (which checks their shapes and is the kernel's plain version's
+    dispatch). Overwrites ``cur``; returns (A, W, accept), each (R, M).
+    Counted in :data:`ROW_SCAN_LAUNCHES`; raises on operands the kernel does
+    not take."""
+    tensors = (psi, cur, S, ent) + (() if offs is None else (offs,))
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or psi.device.type != "cuda":
+        raise ValueError(f"row scan operands must share one CUDA device: {devices}")
+    if psi.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the row-scan kernel takes a float32 or bfloat16 psi, got {psi.dtype}")
+    for name, t in (("cur", cur), ("S", S), ("ent", ent)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the row-scan kernel takes a float32 {name}, got {t.dtype}")
+    if offs is not None and offs.dtype != torch.int64:
+        raise TypeError(f"the row-scan kernel takes int64 offsets, got {offs.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the row-scan kernel takes contiguous tensors")
+    M, R, T = psi.shape
+    if T >= 2**31:
+        raise ValueError("T must fit in a 32-bit index")
+    from theano_pyglm_torch.ops.cuda_loader import load_adjacency_rows
+
+    lib = load_adjacency_rows()
+    n_blk, blk = (1, T) if offs is None else (offs.shape[1], int(blk))
+    scale = T / (n_blk * blk)
+    beta, dt = float(beta), float(dt)
+    dev = psi.device
+    K = row_scan_cluster(R, n_blk * blk, _sm_count(dev.index))
+    out = torch.empty((3, R, M), dtype=torch.float32, device=dev)
+    key = "row_scan_bf16" if psi.dtype == torch.bfloat16 else "row_scan"
+    err = getattr(lib, "adjacency_" + key)(
+        psi.data_ptr(), None if offs is None else offs.data_ptr(), cur.data_ptr(), S.data_ptr(), ent.data_ptr(),
+        out.data_ptr(), R, M, T, n_blk, blk, K, int(n_newton), row_scan_smem_bytes(n_blk * blk, K), dev.index,
+        beta, dt, scale, dt * scale, beta * scale, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.adjacency_row_scan_error_string(err).decode()
+        raise RuntimeError(f"row-scan kernel launch failed: {msg} ({err})")
+    ROW_SCAN_LAUNCHES[key] += 1
+    return out[0], out[1], out[2]
