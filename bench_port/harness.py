@@ -33,7 +33,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["HERE", "FORBIDDEN", "load_json", "load_module", "resolve", "forbidden_loaded", "run_cell",
-           "run_ranks", "metric_names", "per_layer_metrics", "reader"]
+           "run_ranks", "metric_names", "end_to_end_metrics", "per_layer_metrics", "reader"]
 
 HERE = Path(__file__).resolve().parent
 #: top-level modules that may not be loaded in a run: JAX and the JAX package
@@ -76,12 +76,19 @@ def reader(metric: str):
     return load_module("metrics", name)
 
 
+def end_to_end_metrics(workload: str) -> list:
+    """The end-to-end metrics of ``BENCHMARK.json`` that the cell reports:
+    those whose ``workloads`` name it, and those without ``workloads``."""
+    bench = json.loads((HERE.parent / "BENCHMARK.json").read_text())
+    return [m["name"] for m in bench["end_to_end"] if workload in m.get("workloads", [workload])]
+
+
 def per_layer_metrics(workload: str) -> list:
     """The per-layer metrics of ``BENCHMARK.json`` that the cell reports:
     those whose ``workloads`` name it, and those without ``workloads``
     whose ``moves`` is an end-to-end metric the cell reports."""
     bench = json.loads((HERE.parent / "BENCHMARK.json").read_text())
-    e2e = {m["name"] for m in bench["end_to_end"] if workload in m.get("workloads", [workload])}
+    e2e = set(end_to_end_metrics(workload))
     return [m["name"] for m in bench["per_layer"]
             if (workload in m["workloads"] if "workloads" in m else m["moves"] in e2e)]
 

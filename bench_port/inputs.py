@@ -9,7 +9,9 @@ white-noise stimulus and spikes from the model's own generative process
 planted network, an Erdős–Rényi draw with weights ±1.5 and self-coupling
 −2 (``theano_pyglm_torch/scripts/stretch_streaming.py``), with spikes drawn
 independently at each neuron's bias rate (``bench.py``'s recipe: only the
-likelihood's throughput is timed there).
+likelihood's throughput is timed there); and the stochastic block model's
+law (``models/network.py``, the 'sbm' graph) for a configuration whose
+graph is one.
 
 Parameters and stimulus are drawn on the device with a ``torch.Generator``
 seeded from the seed, in float32, the dtype the program runs in; the
@@ -73,11 +75,13 @@ def _prior_draw(cfg: dict, g: torch.Generator, device) -> dict:
         p["locs"] = locs
     elif graph["type"] == "erdos_renyi":
         prob = torch.full((N, N), graph["rho"], dtype=f, device=device)
+    elif graph["type"] == "sbm":
+        prob = _sbm_draw(graph, cfg.get("planted", {}), N, p, g, device)
     else:
         raise ValueError(f"no recipe for the {graph['type']!r} graph")
     p["A"] = (torch.rand((N, N), generator=g, dtype=f, device=device) < prob).to(f)
-    planted = cfg.get("planted")
-    if planted is None:
+    planted = cfg.get("planted", {})
+    if "W_abs" not in planted:
         mu = wt["mu"] * (1 - eye) + wt["mu_self"] * eye
         sd = wt["sigma"] * (1 - eye) + wt["sigma_self"] * eye
         p["W"] = mu + sd * torch.randn((N, N), generator=g, dtype=f, device=device)
@@ -86,6 +90,31 @@ def _prior_draw(cfg: dict, g: torch.Generator, device) -> dict:
         W = planted["W_abs"] * sign * (1 - eye) + planted["W_self"] * eye
         p["W"] = W * p["A"]
     return p
+
+
+def _gamma(alpha: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """Gamma(alpha, 1) draws, one an entry of ``alpha``."""
+    return torch._standard_gamma(alpha.contiguous(), generator=g)
+
+
+def _sbm_draw(graph: dict, planted: dict, N: int, p: dict, g: torch.Generator, device) -> torch.Tensor:
+    """The stochastic block model's latents, put into ``p`` (π, the types y
+    (int64) and the block probabilities "Bm"), and each edge's probability
+    B[y_n, y_m]: π ~ Dir(α0·1_K), y_n ~ Cat(π), B[k, k'] ~ Beta(b0, b1), or
+    the planted (K, K) "B" where the configuration gives one."""
+    K, f = int(graph["K"]), torch.float32
+    b0, b1 = (float(v) for v in graph["B_prior"])
+    gam = _gamma(torch.full((K,), float(graph["alpha0"]), dtype=f, device=device), g)
+    pi = gam / gam.sum()
+    y = torch.multinomial(pi, N, replacement=True, generator=g)
+    if "B" in planted:
+        Bm = torch.as_tensor(planted["B"], dtype=f, device=device)
+    else:
+        ga = _gamma(torch.full((K, K), b0, dtype=f, device=device), g)
+        gb = _gamma(torch.full((K, K), b1, dtype=f, device=device), g)
+        Bm = ga / (ga + gb)
+    p.update(pi=pi, y=y, Bm=Bm)
+    return Bm[y[:, None], y[None, :]]
 
 
 def _stimulus_current(cfg: dict, p: dict, stim: torch.Tensor) -> torch.Tensor:

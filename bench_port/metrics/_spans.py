@@ -3,24 +3,31 @@ the trace's clock, and the device's idle time cut by them.
 
 The program keeps its spans on the host's ``time.time_ns()`` clock, the
 trace its events in µs from the profiler's start. The benchmark spans that
-wrap one whole program call each are the anchors: ``sweep`` and the
-``stage.*`` stages run alone each wrap one top-level program ``sweep``,
-``eval`` one ``value_and_grad``. Anchors and top-level program spans of
-those names are paired in order; the offset is the smallest of the pairs'
-(program start − anchor start), the pair in which the program's span began
-soonest after its anchor. Nothing is given where the counts or the names do
-not pair, or the pairs' offsets spread more than ``SPREAD_US``: the clocks
-then cannot be matched. A program without spans (one that predates them)
-gives nothing.
+wrap one whole program call each are the anchors: ``sweep`` and every
+``stage.<name>`` (a stage run alone) each wrap one top-level program
+``sweep``, ``eval`` one ``value_and_grad``. Anchors and top-level program
+spans of those names are paired in order; the offset is the smallest of
+the pairs' (program start − anchor start), the pair in which the program's
+span began soonest after its anchor. Nothing is given where the counts or
+the names do not pair, or the pairs' offsets spread more than
+``SPREAD_US``: the clocks then cannot be matched. A program without spans
+(one that predates them) gives nothing.
 """
 
 from __future__ import annotations
 
 from bench_port.trace import SPAN, Trace
 
-#: the program span each anchor (a benchmark span, by name) wraps
-ANCHORS = {"sweep": "sweep", "eval": "value_and_grad", "stage.adjacency": "sweep", "stage.hmc": "sweep"}
+#: the program span each anchor (a benchmark span, by name) wraps; and every ``STAGE`` anchor a ``sweep``
+ANCHORS = {"sweep": "sweep", "eval": "value_and_grad"}
+STAGE = "stage."
 SPREAD_US = 1000.0
+
+
+def partner(anchor: str) -> str | None:
+    """The program span that the benchmark span ``anchor`` wraps, or None
+    where it is no anchor."""
+    return "sweep" if anchor.startswith(STAGE) else ANCHORS.get(anchor)
 
 
 def program_spans() -> list | None:
@@ -36,12 +43,12 @@ def aligned(tr: Trace, spans: list) -> list | None:
     """``spans`` (name, start ns, end ns, depth) moved onto ``tr``'s clock
     (µs), those inside the window, sorted by start; None where the anchors
     do not pair (module docstring)."""
-    anchors = sorted((s for s in tr.spans if s[0][len(SPAN):] in ANCHORS), key=lambda s: s[1])
+    anchors = sorted((s for s in tr.spans if partner(s[0][len(SPAN):])), key=lambda s: s[1])
     kinds = set(ANCHORS.values())
     tops = sorted((s for s in spans if s[3] == 0 and s[0] in kinds), key=lambda s: s[1])
     if not anchors or len(anchors) != len(tops):
         return None
-    if any(ANCHORS[a[0][len(SPAN):]] != p[0] for a, p in zip(anchors, tops)):
+    if any(partner(a[0][len(SPAN):]) != p[0] for a, p in zip(anchors, tops)):
         return None
     base = tops[0][1]  # integer ns: a float64 of the epoch's ns keeps only 0.25 µs
 

@@ -15,9 +15,11 @@ with X[t, p, b] = Σ_l basis_imp[l, b] S[t−1−l, p] (strictly causal, zeros
 before t = 0), Xs the stimulus filtered the same way by the stimulus
 basis, and clip at ±40 (λ and log λ clipped at the same point). Priors:
 bias, w_stim, w_ir (per-column means) and W (its own diagonal mean and
-scale) Gaussian; the graph either Erdős–Rényi, A ~ Bern(ρ), or
+scale) Gaussian; the graph either Erdős–Rényi, A ~ Bern(ρ),
 distance-dependent, locs ~ N(0, σ_l²), A ~ Bern(σ(η0 − ‖ℓ_n − ℓ_p‖²/τ²)),
-with probabilities clamped to [1e-12, 1 − 1e-12].
+or a stochastic block model, π ~ Dir(α0·1_K), y_n ~ Cat(π),
+B[k, k'] ~ Beta(b0, b1), A ~ Bern(B[y_n, y_p]), with probabilities clamped
+to [1e-12, 1 − 1e-12].
 
 The likelihood and its gradient are summed over time blocks, each with
 its own design rebuilt from the spikes (the exact L-bin history), so a
@@ -40,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["cosine_basis", "causal_filter", "design_blocks", "log_likelihood_and_grad", "log_prior_and_grad",
-           "log_joint_and_grad", "weight_prior", "edge_logits", "CONTINUOUS"]
+           "log_joint_and_grad", "weight_prior", "edge_logits", "sbm_hypers", "CONTINUOUS"]
 
 EXP_CLIP = 40.0
 _LOG2PI = math.log(2.0 * math.pi)
@@ -180,13 +182,41 @@ def _bernoulli(a, prob):
     return torch.special.xlogy(a, prob) + torch.special.xlogy(1.0 - a, 1.0 - prob)
 
 
+def _betaln(a, b):
+    """log B(a, b)."""
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+def sbm_hypers(model: dict) -> tuple:
+    """(K, α0, b0, b1) of the configuration's stochastic block model."""
+    graph = model["network"]["graph"]
+    b0, b1 = (float(v) for v in graph["B_prior"])
+    return int(graph["K"]), float(graph["alpha0"]), b0, b1
+
+
+def _sbm_log_prior(model: dict, x: dict):
+    """log Dir(π; α0·1_K) + Σ_n log π[y_n] + Σ_kk' log Beta(B[k, k']; b0, b1)."""
+    K, alpha0, b0, b1 = sbm_hypers(model)
+    pi, Bm = x["pi"], x["Bm"]
+    log_dir = (math.lgamma(K * alpha0) - K * math.lgamma(alpha0)
+               + torch.special.xlogy(torch.full_like(pi, alpha0 - 1.0), pi).sum())
+    log_types = torch.log(pi)[x["y"]].sum()
+    one = torch.ones_like(Bm)
+    log_beta = (torch.special.xlogy((b0 - 1.0) * one, Bm) + torch.special.xlogy((b1 - 1.0) * one, 1.0 - Bm)
+                - _betaln(b0 * one, b1 * one)).sum()
+    return log_dir + log_types + log_beta
+
+
 def log_prior_and_grad(model: dict, params: dict, precision: str = "float64"):
     """(log-prior, {component: its log-prior}, {leaf: d log-prior / d leaf})
-    of one chain's ``params``, for the Gaussian weights and either graph."""
+    of one chain's ``params``, for the Gaussian weights and any of the three
+    graphs. The block model's π and B are Gibbs leaves: no gradient."""
     f = torch.float32 if precision == "tf32" else torch.float64
     x = {k: params[k].to(f).detach().requires_grad_(k != "A") for k in ("bias", "w_stim", "w_ir", "A", "W")}
     if "locs" in params:
         x["locs"] = params["locs"].to(f).detach().requires_grad_(True)
+    if model["network"]["graph"]["type"] == "sbm":
+        x.update(pi=params["pi"].to(f), Bm=params["Bm"].to(f), y=params["y"].long())
     N = x["A"].shape[0]
     eye = torch.eye(N, dtype=f, device=x["A"].device)
     bias, bkgd, imp = model["bias"], model["bkgd"], model["impulse"]
@@ -203,6 +233,8 @@ def log_prior_and_grad(model: dict, params: dict, precision: str = "float64"):
     parts["graph"] = _bernoulli(x["A"], torch.sigmoid(logits)).sum()
     if graph["type"] == "distance":
         parts["graph"] = parts["graph"] + _gauss(x["locs"], 0.0, graph["sigma_l"]).sum()
+    elif graph["type"] == "sbm":
+        parts["graph"] = parts["graph"] + _sbm_log_prior(model, x)
     total = sum(parts.values())
     leaves = [k for k in CONTINUOUS if k in x]
     grads = torch.autograd.grad(total, [x[k] for k in leaves])
@@ -219,8 +251,9 @@ def weight_prior(model: dict, N: int, dtype, device) -> tuple:
 
 def edge_logits(model: dict, params: dict) -> torch.Tensor:
     """(N, N) logit of each edge's prior probability: log ρ/(1 − ρ) for
-    Erdős–Rényi, η0 − ‖ℓ_n − ℓ_p‖²/τ² for the distance graph (the
-    probability clamped to [1e-12, 1 − 1e-12] where it is used)."""
+    Erdős–Rényi, η0 − ‖ℓ_n − ℓ_p‖²/τ² for the distance graph, log B/(1 − B)
+    at B[y_n, y_p] for the block model (the probability clamped to
+    [1e-12, 1 − 1e-12] where it is used)."""
     graph = model["network"]["graph"]
     A = params["A"]
     if graph["type"] == "erdos_renyi":
@@ -230,7 +263,11 @@ def edge_logits(model: dict, params: dict) -> torch.Tensor:
         locs = params["locs"]
         d2 = ((locs[:, None, :] - locs[None, :, :]) ** 2).sum(-1)
         return graph["eta0"] - d2 / graph["tau"] ** 2
-    raise ValueError(f"the reference knows the erdos_renyi and distance graphs, not {graph['type']!r}")
+    if graph["type"] == "sbm":
+        y = params["y"].long()
+        B = params["Bm"].to(A.dtype)[y[:, None], y[None, :]]
+        return torch.log(B) - torch.log1p(-B)
+    raise ValueError(f"the reference knows the erdos_renyi, distance and sbm graphs, not {graph['type']!r}")
 
 
 def log_joint_and_grad(model: dict, params: dict, S: torch.Tensor, stim: torch.Tensor,

@@ -7,6 +7,7 @@ holds. The test marked ``cuda`` runs the control on the card:
 from __future__ import annotations
 
 import ast
+import importlib.util
 import json
 import subprocess
 import sys
@@ -73,6 +74,34 @@ def test_a_traced_run_reads_the_per_layer_metrics_benchmark_json_lists_for_it():
     assert harness.reader("mfu_pct.sampler") is not None and harness.reader("device_idle_pct.evals") is not None
 
 
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_run_prints_the_end_to_end_metrics_benchmark_json_lists_for_it(workload, monkeypatch, capsys):
+    """``run.py --trace 0`` prints the cell's end-to-end metrics and no
+    other, whatever more its driver times (that goes to standard error);
+    ``setup_s`` and one more in every cell."""
+    spec = importlib.util.spec_from_file_location("bench_port_run", harness.HERE / "run.py")
+    run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run)
+    monkeypatch.setattr(run, "_caches", lambda: None)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    want = [m["name"] for m in BENCH["end_to_end"] if workload in m.get("workloads", [workload])]
+    assert harness.end_to_end_metrics(workload) == want
+    assert "setup_s" in want and len(want) >= 2
+    timed = {name: (1.0, "u") for name in ("chain_sweeps_per_s", "evals_per_s", "setup_s", "peak_mem_gib")}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "card")
+    monkeypatch.setattr(harness, "run_cell", lambda *a, **k: {"metrics": dict(timed), "peak": 1, "attempted": 1,
+                                                              "failed": 0, "checks": {}})
+    assert run.main(["--workload", workload, "--seed", "1", "--seconds", "1", "--trace", "0"]) == 0
+    printed = capsys.readouterr()
+    line = json.loads(printed.out.strip().splitlines()[-1])
+    assert list(line["metrics"]) == [k for k in timed if k in want]
+    for k in timed:
+        assert (f"timed, not reported in this cell: {k} " in printed.err) == (k not in want), k
+
+
 def test_configurations_are_the_port_models_named():
     from theano_pyglm_torch.models.zoo import make_model
 
@@ -83,16 +112,18 @@ def test_configurations_are_the_port_models_named():
     assert harness.load_json("configs", "long-recording")["spec"] == want
 
 
-@pytest.mark.parametrize("config", ["flagship", "long-recording"])
+@pytest.mark.parametrize("config", ["flagship", "long-recording", "sbm"])
 def test_reference_matches_the_port_in_float64(config):
     """Value and gradient of the log-joint, the reference against the port's
-    plain float64 path, on inputs the benchmark made."""
+    plain float64 path, on inputs the benchmark made; "sbm" is the flagship
+    with a block model graph (its types, π and B among the parameters)."""
     from theano_pyglm_torch import Population
     from theano_pyglm_torch.inference.map import split_params, value_and_grad
 
-    cfg = tiny.cell("flagship-c16" if config == "flagship" else "long-resident-evals")["config"]
+    cells = {"flagship": "flagship-c16", "long-recording": "long-resident-evals"}
+    cfg = tiny.cell(cells[config])["config"] if config in cells else tiny.sbm_cell(N=6)["config"]
     inp = __import__("bench_port.inputs", fromlist=["make_inputs"]).make_inputs(cfg, 5, "cpu")
-    p64 = {k: v.double() for k, v in inp["params"].items()}
+    p64 = {k: v.double() if v.is_floating_point() else v for k, v in inp["params"].items()}
     pop = Population(cfg["spec"], device="cpu", dtype=torch.float64)
     data = pop.prepare_data(inp["S"].double(), stim=inp["stim"].double())
     q, frozen = split_params(p64)
@@ -370,9 +401,10 @@ def test_the_tf32_control_is_not_correct(workload):
 
 def test_traced_run_reads_the_trace():
     """On the CPU the device readers find nothing and return nothing; the
-    host-clock stage timings are there."""
+    host-clock stage timings and rate are there."""
     out = tiny.run("flagship-c16", trace=True)
-    assert set(out["metrics"]) == {"adjacency_ms", "hmc_ms"}
+    assert set(out["metrics"]) == {"adjacency_ms", "hmc_ms", "timed_chain_sweeps_per_s"}
+    assert out["metrics"]["timed_chain_sweeps_per_s"][0] > 0
     bd = out["trace_summary"]["breakdown"]
     assert set(bd) == {"device_ops", "idle_gaps"}
 

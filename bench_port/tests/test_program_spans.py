@@ -47,6 +47,13 @@ def test_the_offset_is_recovered():
     assert moved[3][1] == pytest.approx(505.0)
 
 
+def test_a_stage_run_alone_is_an_anchor_whatever_its_name():
+    spans = [(SPAN + "window", 0.0, 1000.0), (SPAN + "sweep", 10.0, 400.0), (SPAN + "stage.discrete", 500.0, 900.0)]
+    moved = _spans.aligned(Trace([], spans), _program())
+    assert moved is not None and moved[3][1] == pytest.approx(505.0)
+    assert _spans.partner("stage.anything") == "sweep" and _spans.partner("stages") is None
+
+
 def test_an_idle_gap_across_two_stages_is_split_between_them():
     ops = [("k", 0.0, 50.0), ("k", 150.0, 200.0), ("k", 600.0, 700.0), ("copy", 950.0, 990.0)]
     tr = _trace(ops)

@@ -39,6 +39,26 @@ def cell(workload: str, **limits) -> dict:
     return c
 
 
+#: a block model graph put in place of a configuration's own
+SBM_GRAPH = {"type": "sbm", "K": 2, "alpha0": 1.0, "B_prior": [1.0, 1.0]}
+#: the discrete stage's limits: its types exactly, π and B to 1e-5
+SBM_LIMITS = {"type_gap": 0, "hyper_gap": 1e-5}
+
+
+def sbm_cell(N: int = SIZES["N"], chains: int = SIZES["chains"], **limits) -> dict:
+    """The tiny flagship-c16 cell with the block model graph ``SBM_GRAPH``
+    in place of the distance graph, at ``N`` neurons and ``chains`` chains,
+    its discrete stage compared by ``SBM_LIMITS``; ``limits`` replace
+    these."""
+    c = cell("flagship-c16")
+    c["config"]["name"] = "tiny-sbm"
+    c["config"]["spec"]["N"] = N
+    c["config"]["spec"]["network"]["graph"] = copy.deepcopy(SBM_GRAPH)
+    c["traffic"]["chains"] = chains
+    c["workload"]["limits"].update(SBM_LIMITS, **limits)
+    return c
+
+
 def run(workload: str, seed: int = 3, seconds: float = 0.3, trace: bool = False, **limits) -> dict:
     torch.manual_seed(0)
     return harness.run_cell(cell(workload, **limits), seed, seconds, trace, torch.device("cpu"))

@@ -13,8 +13,10 @@ copies the kept draws to the host every ``chunk_size`` sweeps and at the end.
 Once the window has closed, the state it ended in goes once more through
 the sweep's adjacency stage, and once through its two HMC stages (impulse
 weights, latent locations), each as ``make_sweep(stages=...)`` runs it
-alone, with the window's own generators, whose states are kept. Read against
-the reference, chain by chain (:func:`readings`):
+alone, with the window's own generators, whose states are kept; with a
+stochastic block model graph, once more through the discrete stage (the
+types, then π and B). Read against the reference, chain by chain
+(:func:`readings`):
 
 - ``adj_gap``: each adjacency entry's (A, W) against the reference's
   replay of the stage from the same state and draws (``reference/sweep``),
@@ -29,6 +31,10 @@ the reference, chain by chain (:func:`readings`):
   chain, against the larger of that leaf's norm and the median leaf's;
 - ``stuck_chains``: chains whose continuous leaves did not move over the
   window;
+- ``type_gap`` and ``hyper_gap`` (block model graphs only): the types the
+  reference's replay of the discrete stage (``reference/discrete``) does
+  not allow, and the worst relative difference of π and B from its draws,
+  worst chain;
 - ``imp_logp_gap``: the impulse block's log-density as the window's last
   HMC transition cached it, at the parameters that transition saw;
 - ``logjoint_gap``: the log-joint's value at the final state.
@@ -36,6 +42,10 @@ the reference, chain by chain (:func:`readings`):
 The workload's ``limits`` name the numbers compared. The last two values
 are read and not compared: the TF32 control reads them within 1–4 times
 the program's own float32 rounding, so no limit separates the two.
+
+A traced run times, and traces once more, each stage of :data:`ALONE`
+alone: the adjacency stage, the two HMC stages as ``hmc``, and with a block
+model graph the discrete stage.
 """
 
 from __future__ import annotations
@@ -52,11 +62,16 @@ from theano_pyglm_torch.parallel.chains import _share_adaptation
 
 from bench_port import yardstick
 from bench_port.inputs import make_inputs, seeds
+from bench_port.reference import discrete as ref_discrete
 from bench_port.reference import glm as ref
 from bench_port.reference import sweep as ref_sweep
 from bench_port.trace import profiled, span
 
 JITTER_LEAVES = ("bias", "w_stim", "w_ir", "locs", "W")
+#: the stages a traced run times alone, by the key of ``stage_ms`` that their metric reads
+ALONE = {"adjacency": ("adjacency",), "hmc": ("imp", "latent"), "discrete": ("discrete",)}
+#: the discrete stage's leaves that the check compares
+_DISCRETE_LEAVES = ("y", "pi", "Bm")
 
 
 def _sync(dev):
@@ -152,6 +167,17 @@ def window(ctx, st) -> dict:
             "metrics": {"chain_sweeps_per_s": (n * C / wall, "chain-sweeps/s")}}
 
 
+def _typed(ctx) -> bool:
+    """Whether the configuration's graph is a block model, whose types and
+    π, B the discrete stage draws."""
+    return ctx["config"]["spec"]["network"]["graph"]["type"] == "sbm"
+
+
+def _alone(ctx) -> dict:
+    """The stages of :data:`ALONE` that this configuration's sweep runs."""
+    return {k: v for k, v in ALONE.items() if k != "discrete" or _typed(ctx)}
+
+
 def _stage_sweep(ctx, st, stages):
     return make_sweep(st["pop"], st["data"], stages=stages, diagnostic=True, **st["sweep_kw"])
 
@@ -171,8 +197,7 @@ def traced(ctx, st, run=None) -> dict:
         st["state"] = st["sweep"](st["gens"], st["state"], False, 1.0)
     _sync(dev)
     timed_s = time.perf_counter() - t0
-    alone = {"adjacency": _stage_sweep(ctx, st, ("adjacency",)),
-             "hmc": _stage_sweep(ctx, st, ("imp", "latent"))}
+    alone = {key: _stage_sweep(ctx, st, stages) for key, stages in _alone(ctx).items()}
     stage_ms = {}
     for key, sw in alone.items():
         s = sw(st["gens"], st["state"], False, 1.0)
@@ -210,8 +235,9 @@ def outputs(ctx, st) -> dict:
     and the previous sweep's parameters, the impulse block's cached
     log-density, the log-joint and its gradient at the final state through
     the program's chain-batched entry, and the outputs of the adjacency
-    stage and of the HMC stages run once more from the final state, with
-    the generators' states before each."""
+    stage and of the HMC stages (and, with a block model graph, of the
+    discrete stage) run once more from the final state, with the
+    generators' states before each."""
     pop, data, state = st["pop"], st["data"], st["state"]
     p = state["params"]
     q = {k: v for k, v in p.items() if k in ref.CONTINUOUS}
@@ -237,6 +263,10 @@ def outputs(ctx, st) -> dict:
     out["hmc_out"] = keep({k: hmc["params"][k] for _, k in blocks})
     out["hmc_step"] = {k: state[b].step_size.detach().clone() for b, k in blocks}
     out["hmc_scale"] = {k: state[b].scale[k].detach().clone() for b, k in blocks}
+    if _typed(ctx):
+        out["disc_gens"] = _gen_states(st["gens"])
+        disc = _stage_sweep(ctx, st, ("discrete",))(st["gens"], state, False, 1.0)["params"]
+        out["disc_out"] = keep({k: disc[k] for k in _DISCRETE_LEAVES})
     return out
 
 
@@ -356,8 +386,26 @@ def readings(ctx, judged) -> dict:
                for k in ref.CONTINUOUS if k in judged["final"]):
             stuck += 1
     stages = _stages(ctx, judged, "float64", follow=True)
-    return {"adj_gap": stages["adj_gap"], "hmc_gap": stages["hmc_gap"], "imp_logp_gap": float(imp_gap),
-            "logjoint_gap": float(value_gap), "grad_gap": grad_gap, "stuck_chains": float(stuck)}
+    out = {"adj_gap": stages["adj_gap"], "hmc_gap": stages["hmc_gap"], "imp_logp_gap": float(imp_gap),
+           "logjoint_gap": float(value_gap), "grad_gap": grad_gap, "stuck_chains": float(stuck)}
+    if "disc_out" in judged:
+        out.update(_discrete(ctx, judged))
+    return out
+
+
+def _discrete(ctx, judged) -> dict:
+    """{"type_gap", "hyper_gap"}: the reference's replay of the discrete
+    stage from each chain's final state, following the program's types,
+    worst chain. The control leaves the stage as the program ran it: its
+    counts are integers, which TF32 products cannot round."""
+    model = ctx["config"]["spec"]
+    final, disc = judged["final"], judged["disc_out"]
+    gaps = {"type_gap": 0.0, "hyper_gap": 0.0}
+    for c in range(final["A"].shape[0]):
+        r = ref_discrete.discrete_replay(model, final["A"][c], final["y"][c], judged["disc_gens"][c],
+                                         follow=_chain(disc, c), dtype=final["A"].dtype)
+        gaps = {k: max(v, r[k]) for k, v in gaps.items()}
+    return gaps
 
 
 def check(ctx, judged) -> dict:
